@@ -1,0 +1,152 @@
+"""Batched, deterministic generate-and-recognize.
+
+Port of ``affganwriting_tpu/gen/inference.py:26-110`` and of
+``train/state.py:build_models`` for the serving pair (G, seq2seq R).  The
+style stack is encoded once and a batch of words is generated, then read
+back by R with greedy decoding.  Public layouts are the JAX package's: style
+stacks (S, H, W, 50), labels (B, T), images (B, H, W, 1), greedy ids
+(B, T - 1).
+
+Entry points run on the CUDA card unless the caller passes ``device="cpu"``;
+with no card and no such request they raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from affganwriting_torch.core.config import VOCAB, WordGanConfig
+from affganwriting_torch.models.generator import Generator
+from affganwriting_torch.models.recognizer.seq2seq import Recognizer
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA card; a CUDA device without a card raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the port runs on the card; pass "
+            "device='cpu' to run it on the CPU")
+    return dev
+
+
+def init_weights(module: nn.Module, seed: int) -> nn.Module:
+    """Deterministic random weights from ``seed``, drawn on the CPU:
+    LeCun-normal (std 1/sqrt(fan_in)) for every parameter of rank >= 2,
+    ones for norm scales, zeros for biases; BatchNorm statistics stay at
+    mean 0, variance 1."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.dim() >= 2:
+                fan_in = p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=gen) / fan_in ** 0.5)
+            elif name.endswith("weight"):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+    return module
+
+
+def _load(module: nn.Module, state, seed: int, device) -> nn.Module:
+    if state is None:
+        init_weights(module, seed)
+    else:
+        module.load_state_dict(state, strict=True)
+    return module.to(device).eval().requires_grad_(False)
+
+
+def build_generator(config: WordGanConfig, device=None, *, state=None,
+                    seed: int = 0) -> Generator:
+    """G on ``device`` (``None``: the card) with ``state`` (a state dict,
+    e.g. from ``utils/from_flax``) or random weights from ``seed``."""
+    dev = resolve_device(device)
+    return _load(Generator(config), state, seed, dev)
+
+
+def build_recognizer(config: WordGanConfig, device=None, *, state=None,
+                     seed: int = 1) -> Recognizer:
+    dev = resolve_device(device)
+    if config.recognizer != "seq2seq":
+        raise ValueError(f"the port has the seq2seq recognizer only, got "
+                         f"{config.recognizer!r}")
+    rec = Recognizer(config.vocab_size, config.rec_hidden, config.rec_embed,
+                     config.output_max_len, config.img_height,
+                     getattr(torch, config.compute_dtype))
+    return _load(rec, state, seed, dev)
+
+
+def build_models(config: WordGanConfig, device=None, *, seed: int = 0):
+    """(G, R) on ``device`` (``None``: the card) with random weights: G from
+    ``seed``, R from ``seed + 1``."""
+    dev = resolve_device(device)
+    return (build_generator(config, dev, seed=seed),
+            build_recognizer(config, dev, seed=seed + 1))
+
+
+def encode_labels(words: list[str], max_len: int) -> np.ndarray:
+    return np.asarray(
+        [VOCAB.pad_label(w[: max_len - 2], max_len) for w in words], np.int32)
+
+
+def _tile_pyramid(pyramid, b: int, s: int):
+    """Writer i % S styles word i; a batch-1 pyramid broadcasts untiled."""
+    if s == b or s == 1:
+        return pyramid
+    return [tap.repeat(b // s, 1, 1, 1) for tap in pyramid]
+
+
+def _check_batch(b: int, s: int) -> None:
+    if s != b and s != 1 and b % s:
+        raise ValueError(
+            f"labels batch {b} is not a multiple of the {s} style "
+            "stacks; pad or trim the word list")
+
+
+def make_generate_fn(config: WordGanConfig, gen_state=None, *, device=None,
+                     seed: int = 0):
+    """Returns ``generate(style_stack (S, H, W, 50), labels (B, T)) ->
+    images (B, H, W, 1)``; labels are generated against writer ``i % S``.
+    ``generate.gen`` is the Generator."""
+    dev = resolve_device(device)
+    gen = build_generator(config, dev, state=gen_state, seed=seed)
+
+    @torch.inference_mode()
+    def generate(style_stack, labels):
+        style = torch.as_tensor(style_stack, dtype=torch.float32, device=dev)
+        labels = torch.as_tensor(labels, device=dev).long()
+        b, s = labels.shape[0], style.shape[0]
+        _check_batch(b, s)
+        pyramid = _tile_pyramid(gen.encode_style(style), b, s)
+        return gen.generate(pyramid, labels).permute(0, 2, 3, 1)
+
+    generate.gen = gen
+    return generate
+
+
+def make_generate_and_read_fn(config: WordGanConfig, gen_state=None,
+                              rec_state=None, *, device=None, seed: int = 0):
+    """Generation + recognition: ``run(style_stack, labels) -> (images
+    (B, H, W, 1), greedy ids (B, T - 1))``.  ``run.run_gen`` and
+    ``run.run_rec`` are the two halves; ``run.gen``/``run.rec`` the
+    models.  Random weights come from ``seed`` (G) and ``seed + 1`` (R)
+    where no state dict is given."""
+    dev = resolve_device(device)
+    run_gen = make_generate_fn(config, gen_state, device=dev, seed=seed)
+    rec = build_recognizer(config, dev, state=rec_state, seed=seed + 1)
+
+    @torch.inference_mode()
+    def run_rec(images, labels):
+        labels = torch.as_tensor(labels, device=dev).long()
+        logits, _ = rec(images.permute(0, 3, 1, 2), labels)
+        return logits.argmax(dim=-1)
+
+    def run(style_stack, labels):
+        images = run_gen(style_stack, labels)
+        return images, run_rec(images, labels)
+
+    run.run_gen, run.run_rec = run_gen, run_rec
+    run.gen, run.rec = run_gen.gen, rec
+    return run

@@ -1,0 +1,207 @@
+"""AdaIN decoder: (B, 512, 8, 27) content -> (B, 1, 64, 216) word image.
+
+Port of ``affganwriting_tpu/models/decoder.py`` (serving path, NCHW): two
+AdaIN residual blocks whose second AdaIN site fuses a style-pyramid skip
+through iAFF, three 2x upsample + 5x5 conv stages with instance norm + ReLU,
+and a 7x7 tanh head.
+
+Subpixel mode (default) folds each upsample+conv pair into four 3x3 phase
+kernels, keeps the last stage in phase layout (channels packed (p, q, c))
+and runs the folded head in phase layout; exact mode upsamples and convolves
+at full resolution.  Both share one parameter set.  The two spatial-layout
+instance norms (and all three in exact mode) run ``ops/in_relu_cuda.in_relu``
+and the subpixel head runs ``ops/phase_head_cuda.phase_head``: the CUDA
+kernels on the card, their plain versions on the CPU.  The kernels are
+forward-only, like the JAX package's Pallas kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from affganwriting_torch.models.aff import AdaINFusion
+from affganwriting_torch.models.blocks import Conv2d, depth_to_space, pad2d
+from affganwriting_torch.ops.in_relu_cuda import in_relu
+from affganwriting_torch.ops.phase_head_cuda import phase_head
+
+
+def _phase_fold_matrix(taps: int, offsets: int) -> torch.Tensor:
+    """F[p, d, a] = 1 where hi-res tap a (of ``taps``, centred) of output
+    phase p lands at low-res offset d (of ``offsets``, centred):
+    d = floor((p + a) / 2)."""
+    r, s = taps // 2, offsets // 2
+    f = torch.zeros(2, offsets, taps)
+    for p in (0, 1):
+        for a in range(-r, r + 1):
+            f[p, (p + a) // 2 + s, a + r] = 1.0
+    return f
+
+
+def fold_upsample_kernel(w: torch.Tensor) -> torch.Tensor:
+    """(Co, Cin, 5, 5) kernel of nearest-2x + 5x5 conv -> (4*Co, Cin, 3, 3)
+    low-res phase kernels, output channel (2p + q)*Co + co:
+    out[2m+p, 2n+q] = sum_{a,b} w[a+2, b+2] x[m + floor((p+a)/2),
+    n + floor((q+b)/2)]."""
+    f = _phase_fold_matrix(5, 3).to(w)
+    co, ci = w.shape[:2]
+    w4 = torch.einsum("pya,qxb,oiab->pqoiyx", f, f, w)
+    return w4.reshape(4 * co, ci, 3, 3)
+
+
+def split_adain_params(adain_params: torch.Tensor, num_sites: int, dim: int):
+    """(B, num_sites*2*dim) -> list of (mean (B, dim), std (B, dim))."""
+    out = []
+    for i in range(num_sites):
+        chunk = adain_params[:, i * 2 * dim:(i + 1) * 2 * dim]
+        out.append((chunk[:, :dim], chunk[:, dim:]))
+    return out
+
+
+def instance_norm_phase(x4: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Instance norm of the logical (2h, 2w) image computed in phase layout:
+    x4 (B, 4C, h, w), channels packed (p, q, c); per-(sample, c) statistics
+    pool over (p, q, h, w)."""
+    b, c4, h, w = x4.shape
+    g = x4.reshape(b, 4, c4 // 4, h * w)
+    f32 = g.float()
+    mean = f32.mean(dim=(1, 3), keepdim=True)
+    var = f32.square().mean(dim=(1, 3), keepdim=True) - mean.square()
+    scale = torch.rsqrt(var + eps)
+    out = (g - mean.to(g.dtype)) * scale.to(g.dtype)
+    return out.reshape(b, c4, h, w)
+
+
+def fold_head_kernel(k: torch.Tensor) -> torch.Tensor:
+    """(1, C, 7, 7) head kernel -> tap-major phase kernel (4C, 100):
+    kc[(2p+q)*C + c, 4*(5*dy + dx) + 2P + Q] is the weight of input phase
+    (p, q) at low-res offset (dy-2, dx-2) for output phase (P, Q)."""
+    c = k.shape[1]
+    # g[P, d, p, a] = 1 where hi-res tap a of output phase P reads input
+    # phase p = (P + a) mod 2 at low-res offset d = floor((P + a) / 2)
+    g = torch.zeros(2, 5, 2, 7)
+    for P in (0, 1):
+        for a in range(-3, 4):
+            g[P, (P + a) // 2 + 2, (P + a) % 2, a + 3] = 1.0
+    g = g.to(k)
+    k4 = torch.einsum("PypA,QxqB,cAB->pqcyxPQ", g, g, k[0])
+    return k4.reshape(4 * c, 100)
+
+
+class UpsampleConv(nn.Module):
+    """2x nearest upsample + 5x5 reflect-pad conv; ``subpixel`` runs it as
+    one low-res 3x3 conv with the folded phase kernels, ``emit_phase``
+    skips the final depth-to-space."""
+
+    def __init__(self, cin: int, features: int, subpixel: bool = True,
+                 emit_phase: bool = False, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.subpixel, self.emit_phase, self.dtype = subpixel, emit_phase, dtype
+        self.weight = nn.Parameter(torch.empty(features, cin, 5, 5))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        dt = self.dtype
+        if not self.subpixel:
+            up = F.interpolate(x, scale_factor=2, mode="nearest")
+            up = pad2d(up, 2, "reflect")
+            return F.conv2d(up.to(dt), self.weight.to(dt), self.bias.to(dt))
+        w4 = fold_upsample_kernel(self.weight)
+        y = F.conv2d(pad2d(x, 1, "reflect").to(dt), w4.to(dt),
+                     self.bias.repeat(4).to(dt))
+        return y if self.emit_phase else depth_to_space(y)
+
+
+class PhaseHead(nn.Module):
+    """7x7 conv + tanh head consuming phase layout, one output channel.
+
+    The (1, C, 7, 7) kernel is folded into a tap-major (4C, 100) kernel,
+    the phase tensor is reflect-padded by 2, and ``phase_head`` computes
+    tanh of the folded conv with the depth-to-space fused."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(1, channels, 7, 7))
+        self.bias = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x4):
+        kc = fold_head_kernel(self.weight)
+        xp = pad2d(x4, 2, "reflect")                  # (B, 4C, h+4, w+4)
+        return phase_head(xp.to(self.dtype).contiguous(), kc.to(self.dtype),
+                          self.bias.repeat(4))
+
+
+class ExactHead(nn.Module):
+    """7x7 reflect-pad conv + tanh on spatial layout; same parameters as
+    ``PhaseHead``."""
+
+    def __init__(self, channels: int, pad_type: str = "reflect",
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.pad_type, self.dtype = pad_type, dtype
+        self.weight = nn.Parameter(torch.empty(1, channels, 7, 7))
+        self.bias = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x):
+        y = F.conv2d(pad2d(x, 3, self.pad_type).to(self.dtype),
+                     self.weight.to(self.dtype))
+        return torch.tanh(y + self.bias.to(self.dtype))
+
+
+class AdaINResBlock(nn.Module):
+    """Residual block whose two 3x3 convs are followed by AdaIN sites; the
+    second site fuses a style skip."""
+
+    def __init__(self, dim: int = 512, pad_type: str = "reflect",
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.pad_type = pad_type
+        self.conv0 = Conv2d(dim, dim, 3, compute_dtype=dtype)
+        self.adain0 = AdaINFusion(dim, dtype)
+        self.conv1 = Conv2d(dim, dim, 3, compute_dtype=dtype)
+        self.adain1 = AdaINFusion(dim, dtype, fuse_skip=True)
+
+    def forward(self, x, params0, params1, skip1):
+        h = self.conv0(pad2d(x, 1, self.pad_type))
+        h = torch.relu(self.adain0(h, *params0))
+        h = self.conv1(pad2d(h, 1, self.pad_type))
+        h = self.adain1(h, *params1, skip=skip1)
+        return x + h
+
+
+class Decoder(nn.Module):
+    def __init__(self, dim: int = 512, ups: int = 3, pad_type: str = "reflect",
+                 subpixel_upsample: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dim, self.ups, self.subpixel = dim, ups, subpixel_upsample
+        self.res0 = AdaINResBlock(dim, pad_type, dtype)
+        self.res1 = AdaINResBlock(dim, pad_type, dtype)
+        d = dim
+        for i in range(ups):
+            last = i == ups - 1
+            self.add_module(f"up{i}", UpsampleConv(
+                d, d // 2, subpixel=subpixel_upsample,
+                emit_phase=subpixel_upsample and last, dtype=dtype))
+            d //= 2
+        self.head = (PhaseHead(d, dtype) if subpixel_upsample
+                     else ExactHead(d, pad_type, dtype))
+
+    def forward(self, content: torch.Tensor, adain_params: torch.Tensor,
+                style_pyramid: Sequence[torch.Tensor]) -> torch.Tensor:
+        sites = split_adain_params(adain_params, 4, self.dim)
+        skip1 = F.max_pool2d(style_pyramid[3], 2, 2)
+        skip3 = style_pyramid[4]
+        x = self.res0(content, sites[0], sites[1], skip1)
+        x = self.res1(x, sites[2], sites[3], skip3)
+        for i in range(self.ups):
+            x = getattr(self, f"up{i}")(x)
+            if self.subpixel and i == self.ups - 1:
+                x = torch.relu(instance_norm_phase(x))
+            else:
+                x = in_relu(x.contiguous())
+        return self.head(x)

@@ -1,0 +1,87 @@
+"""Recognizer visual encoder: VGG19-BN trunk + 2-layer BiGRU (NCHW).
+
+Port of ``affganwriting_tpu/models/recognizer/encoder.py``: cfg-'E' VGG19
+with BatchNorm (4 max-pools: 64x216 -> 4x13x512), gray input repeated to 3
+channels, the trunk flattened to a width-major sequence whose features are
+ordered h-major (index h*C + c), and a bidirectional GRU whose two
+directions are summed.  Serving only: the dropouts of training are absent.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from affganwriting_torch.models.blocks import BatchNorm, Conv2d
+
+_VGG19_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
+              512, 512, 512, 512, "M", 512, 512, 512, 512)
+
+
+class VGGTrunk(nn.Module):
+    """cfg-'E' VGG19 with BatchNorm, 3-channel input, no classifier head."""
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        cin, ci = 3, 0
+        for v in _VGG19_CFG:
+            if v == "M":
+                continue
+            self.add_module(f"conv{ci}", Conv2d(cin, v, 3, padding=1,
+                                                compute_dtype=dtype))
+            self.add_module(f"bn{ci}", BatchNorm(v))
+            cin, ci = v, ci + 1
+
+    def forward(self, x):
+        ci = 0
+        for v in _VGG19_CFG:
+            if v == "M":
+                x = F.max_pool2d(x, 2, 2)
+            else:
+                conv, bn = getattr(self, f"conv{ci}"), getattr(self, f"bn{ci}")
+                x = torch.relu(bn(conv(x))).to(self.dtype)
+                ci += 1
+        return x
+
+
+class BiGRU(nn.Module):
+    """2-layer bidirectional GRU, outputs summed over directions.
+
+    Returns (outputs (B, T, H), dec_init_hidden (layers, B, H)): the
+    decoder's initial state is the *backward* final state of each layer."""
+
+    def __init__(self, input_size: int, hidden: int = 512, layers: int = 2):
+        super().__init__()
+        self.hidden = hidden
+        self.gru = nn.GRU(input_size, hidden, num_layers=layers,
+                          bidirectional=True, batch_first=True)
+
+    def forward(self, x):
+        out, h_n = self.gru(x)          # h_n: (layers*2, B, H), fwd/bwd
+        out = out[..., :self.hidden] + out[..., self.hidden:]
+        return out, h_n[1::2]
+
+
+class RecEncoder(nn.Module):
+    """(B, 1 or 3, H, W) word image -> (enc_out (B, W/16, hidden), h0)."""
+
+    def __init__(self, hidden: int = 512, img_height: int = 64,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.vgg = VGGTrunk(dtype)
+        self.rnn = BiGRU((img_height // 16) * 512, hidden)
+
+    def sequence(self, img):
+        """The VGG trunk's features as the BiGRU's f32 input (B, W/16,
+        (H/16) * 512)."""
+        if img.shape[1] == 1:
+            img = img.expand(-1, 3, -1, -1)
+        feat = self.vgg(img)
+        b, c, h, w = feat.shape
+        # width is the sequence axis; features flatten (height, channel)
+        return feat.permute(0, 3, 2, 1).reshape(b, w, h * c).float()
+
+    def forward(self, img):
+        return self.rnn(self.sequence(img))

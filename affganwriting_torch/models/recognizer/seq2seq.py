@@ -1,0 +1,70 @@
+"""Attention seq2seq recognizer R, free-running greedy decoding.
+
+Port of ``affganwriting_tpu/models/recognizer/seq2seq.py`` (``DecoderCell``
+and ``Recognizer.__call__``/``decode`` with no teacher forcing): the JAX
+``nn.scan`` over ``output_max_len - 1`` steps is a Python loop here.  The
+decoder runs in f32 whatever the trunk's compute dtype, as in the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from affganwriting_torch.core.config import VOCAB
+from affganwriting_torch.models.recognizer.attention import LocationAttention
+from affganwriting_torch.models.recognizer.encoder import RecEncoder
+
+
+class DecoderCell(nn.Module):
+    """One decode step: attention -> context -> 2-layer GRU -> logits."""
+
+    def __init__(self, vocab_size: int = VOCAB.size, hidden: int = 512,
+                 embed_dim: int = 60):
+        super().__init__()
+        self.attention = LocationAttention(hidden)
+        self.embedding = nn.Embedding(vocab_size, embed_dim)
+        self.gru0 = nn.GRUCell(embed_dim + hidden, hidden)
+        self.gru1 = nn.GRUCell(hidden, hidden)
+        self.out = nn.Linear(hidden, vocab_size)
+
+    def forward(self, hidden, prev_attn, prev_id, enc_out):
+        """hidden (2, B, H), prev_attn (B, T), prev_id (B,), enc_out
+        (B, T, H) -> (new hidden, attn, logits (B, V))."""
+        attn = self.attention(hidden, enc_out, prev_attn)
+        context = torch.einsum("bt,bth->bh", attn, enc_out)
+        x = torch.cat([self.embedding(prev_id), context], dim=-1)
+        h0 = self.gru0(x, hidden[0])
+        h1 = self.gru1(h0, hidden[1])
+        return torch.stack([h0, h1]), attn, self.out(h1)
+
+
+class Recognizer(nn.Module):
+    """VGG-BiGRU encoder + greedy attention decoder.  ``forward(img,
+    labels)`` returns per-step logits (B, T_out - 1, V) and attention
+    weights (B, T_out - 1, W/16); only ``labels[:, 0]`` (GO) is read."""
+
+    def __init__(self, vocab_size: int = VOCAB.size, hidden: int = 512,
+                 embed_dim: int = 60, output_max_len: int = 12,
+                 img_height: int = 64, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.output_max_len = output_max_len
+        self.enc = RecEncoder(hidden, img_height, dtype)
+        self.dec = DecoderCell(vocab_size, hidden, embed_dim)
+
+    def forward(self, img, labels):
+        enc_out, hidden0 = self.enc(img)
+        return self.decode(enc_out, hidden0, labels)
+
+    def decode(self, enc_out, hidden0, labels):
+        hidden = hidden0
+        attn = enc_out.new_zeros(enc_out.shape[:2])
+        prev = labels[:, 0]
+        logits, attns = [], []
+        for _ in range(self.output_max_len - 1):
+            hidden, attn, step_logits = self.dec(hidden, attn, prev, enc_out)
+            prev = step_logits.argmax(dim=-1)   # ties: first index, as jnp
+            logits.append(step_logits)
+            attns.append(attn)
+        return torch.stack(logits, dim=1), torch.stack(attns, dim=1)

@@ -1,0 +1,147 @@
+"""Flax variables of the JAX package -> state dicts of the port.
+
+The inverse of ``affganwriting_tpu/utils/torch_import.py``'s layouts.  The
+caller hands the flax trees over as nested dicts of numpy arrays
+(``jax.tree.map(np.asarray, variables)``), so this module never sees jax.
+
+- conv kernels (KH, KW, I, O) -> (O, I, KH, KW); 1-D conv kernels (K, I, O)
+  -> (O, I, K); dense kernels (I, O) -> (O, I).  The upsample (5, 5, Cin, Co)
+  and head (7, 7, C, 1) kernels are transposed the same way: the port folds
+  them in forward, as the JAX package does.
+- ``scale``/``bias`` -> ``weight``/``bias``; ``embedding`` -> ``weight``;
+  ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
+- GRU cells (``ir iz in`` with bias, ``hr hz`` without, ``hn`` with) stack
+  as torch's [r, z, n] with ``bias_hh = [0, 0, b_hn]``.  The recognizer's
+  BiGRU keeps its four cells at ``enc/rnn/GRUCell_0..3`` in the order fwd0,
+  bwd0, fwd1, bwd1 (layer k // 2, reversed when k is odd); the decoder's
+  cells are ``dec/gru0`` and ``dec/gru1``.
+
+``from_flax`` raises on any flax leaf it did not consume, and on any port
+parameter or buffer it did not fill or filled with the wrong shape.
+"""
+
+from __future__ import annotations
+
+import re
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from affganwriting_torch.core.config import WordGanConfig
+from affganwriting_torch.models.generator import Generator
+from affganwriting_torch.models.recognizer.seq2seq import Recognizer
+
+_GRU_GATES = frozenset(("ir", "iz", "in", "hr", "hz", "hn"))
+_KERNEL_PERM = {4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}
+_PARAM_LEAVES = {"bias": "bias", "scale": "weight", "embedding": "weight"}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _key(*parts: str) -> str:
+    return ".".join(p for p in parts if p)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _gru(cell: Mapping, prefix: str, suffix: str, path: tuple,
+         out: dict, consumed: set) -> None:
+    def take(gate, leaf):
+        consumed.add(path + (gate, leaf))
+        return np.asarray(cell[gate][leaf], np.float32)
+
+    w_ih = np.concatenate([take(g, "kernel").T for g in ("ir", "iz", "in")])
+    w_hh = np.concatenate([take(g, "kernel").T for g in ("hr", "hz", "hn")])
+    b_ih = np.concatenate([take(g, "bias") for g in ("ir", "iz", "in")])
+    b_hn = take("hn", "bias")
+    b_hh = np.concatenate([np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn])
+    for name, v in (("weight_ih", w_ih), ("weight_hh", w_hh),
+                    ("bias_ih", b_ih), ("bias_hh", b_hh)):
+        out[_key(prefix, name + suffix)] = _t(v)
+
+
+def _walk(node: Mapping, path: tuple, collection: str, out: dict,
+          consumed: set) -> None:
+    for name, child in node.items():
+        p = path + (name,)
+        if isinstance(child, Mapping):
+            if collection == "params" and set(child) == _GRU_GATES:
+                m = re.fullmatch(r"GRUCell_(\d+)", name)
+                if m:       # a BiGRU cell: layer k // 2, odd k reversed
+                    k = int(m.group(1))
+                    prefix = _key(*path, "gru")
+                    suffix = f"_l{k // 2}" + ("_reverse" if k % 2 else "")
+                else:
+                    prefix, suffix = _key(*p), ""
+                _gru(child, prefix, suffix, (collection,) + p, out, consumed)
+            else:
+                _walk(child, p, collection, out, consumed)
+            continue
+        arr = np.asarray(child)
+        if collection == "batch_stats":
+            leaf, value = _STAT_LEAVES.get(name), arr
+        elif name == "kernel" and arr.ndim in _KERNEL_PERM:
+            leaf, value = "weight", arr.transpose(_KERNEL_PERM[arr.ndim])
+        else:
+            leaf, value = _PARAM_LEAVES.get(name), arr
+        if leaf is None:
+            continue                    # left unconsumed: reported below
+        out[_key(*path, leaf)] = _t(value)
+        consumed.add((collection,) + p)
+
+
+def _leaves(tree: Mapping, path: tuple = ()) -> set:
+    found = set()
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            found |= _leaves(v, path + (k,))
+        else:
+            found.add(path + (k,))
+    return found
+
+
+def convert_module(variables: Mapping, module: torch.nn.Module) -> dict:
+    """Flax ``variables`` of one module -> a state dict for the port's
+    counterpart ``module`` (which may live on the meta device).  Raises on
+    any flax leaf not consumed and on any of ``module``'s parameters or
+    buffers not filled, or filled with the wrong shape."""
+    expected = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    out: dict[str, torch.Tensor] = {}
+    consumed: set = set()
+    for collection in ("params", "batch_stats"):
+        if collection in variables:
+            _walk(variables[collection], (), collection, out, consumed)
+    problems = []
+    left = sorted("/".join(p) for p in _leaves(variables) - consumed)
+    if left:
+        problems.append(f"flax leaves not consumed: {left}")
+    missing = sorted(set(expected) - set(out))
+    if missing:
+        problems.append(f"port tensors not filled: {missing}")
+    extra = sorted(set(out) - set(expected))
+    if extra:
+        problems.append(f"converted tensors the port lacks: {extra}")
+    bad = sorted(f"{k}: flax gives {tuple(out[k].shape)}, port has "
+                 f"{expected[k]}" for k in set(out) & set(expected)
+                 if tuple(out[k].shape) != expected[k])
+    if bad:
+        problems.append(f"shape mismatches: {bad}")
+    if problems:
+        raise ValueError(f"from_flax ({type(module).__name__}): "
+                         + "; ".join(problems))
+    return out
+
+
+def from_flax(gen_variables: Mapping, rec_variables: Mapping,
+              config: WordGanConfig):
+    """(G, R) flax variables -> (G, R) state dicts for the port's modules
+    built from ``config``."""
+    with torch.device("meta"):
+        gen = Generator(config)
+        rec = Recognizer(config.vocab_size, config.rec_hidden,
+                         config.rec_embed, config.output_max_len,
+                         config.img_height)
+    return (convert_module(gen_variables, gen),
+            convert_module(rec_variables, rec))

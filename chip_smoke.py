@@ -1,0 +1,445 @@
+"""On-card smoke of the PyTorch/CUDA port: builds the kernels, holds each
+against its plain PyTorch version, serves the main path at full width and
+times it.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (H100, ``sm_90a``) and ``nvcc``; with no card it exits
+non-zero before printing any result.  Phases, each fatal on failure:
+
+1. device and build: card, versions, ``nvidia-smi`` name and power limit;
+   builds ``affganwriting_torch/csrc/*.cu`` and prints the build seconds;
+2. kernel parity at the main path's shapes (batch 64), f32 and bf16,
+   including ReLU off and a duplicated plane;
+3. reference: the port on the card vs the port on the CPU (plain versions,
+   themselves held against the JAX package by ``tests/test_torch_*.py``) on
+   a small fp32 config;
+4. main path: ``default_config()`` (resnet50 G, seq2seq R, 64x216, bf16),
+   random weights from a seed, three requests (1 writer x 256 words,
+   1 x 8, 2 x 8) with the launch counters set to 0 just before and read
+   just after; then the 256-word request timed, each stage's device time,
+   and one ``torch.profiler`` trace (kernel time, idle share, top kernels);
+5. kernel times at batch 256 beside the plain version, one library call
+   and the card's bound (CUDA events, 20 launches per event pair).
+
+The last lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+SEED = 0
+WORDS = ["the", "quick", "brown", "fox", "jumps", "over", "lazy", "dog"]
+
+# (memory bytes/s, dense bf16 tensor FLOP/s, f32 FLOP/s outside the tensor
+# cores) from NVIDIA's H100 data sheet, by the part the card's name names
+CARD_PEAKS = {
+    "PCIe": (2.0e12, 756e12, 51e12),
+    "NVL": (3.9e12, 835e12, 60e12),
+    "SXM": (3.35e12, 989e12, 67e12),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def card_peaks(name: str):
+    for key in ("PCIe", "NVL"):
+        if key in name:
+            return key, CARD_PEAKS[key]
+    return "SXM", CARD_PEAKS["SXM"]
+
+
+def bf16_tolerance_ok(got, ref) -> tuple[float, bool]:
+    """bf16: the kernel and the plain version round the same f32 statistics
+    and sums, taken in another order, to bf16, so an element may land one
+    bf16 ulp (2^-8 relative) apart.  Allowed: 2^-6 * max(1, |ref|)."""
+    d = (got.float() - ref.float()).abs()
+    lim = ref.float().abs().clamp_min(1.0) * 2.0 ** -6
+    return float(d.max()), bool((d <= lim).all())
+
+
+def phase_parity(torch):
+    from affganwriting_torch.ops.in_relu_cuda import in_relu, in_relu_plain
+    from affganwriting_torch.ops.phase_head_cuda import (
+        phase_head,
+        phase_head_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = {"in_relu": {}, "phase_head": {}}
+    tol32 = {"in_relu": 1e-5, "phase_head": 1e-4}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        worst = 0.0
+        for shape in ((64, 256, 16, 54), (64, 128, 32, 108)):
+            x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1) \
+                .to(dtype)
+            x[:, 1] = x[:, 0]                      # a duplicated plane
+            for relu in (True, False):
+                got = in_relu(x, relu=relu)
+                ref = in_relu_plain(x, relu=relu)
+                torch.cuda.synchronize()
+                if not torch.equal(got[:, 0], got[:, 1]):
+                    raise AssertionError(f"in_relu {tag} {shape}: equal "
+                                         "planes gave different outputs")
+                if dtype == torch.float32:
+                    err = float((got - ref).abs().max())
+                    ok = err <= tol32["in_relu"]
+                else:
+                    err, ok = bf16_tolerance_ok(got, ref)
+                log(f"  in_relu {tag} {shape} relu={relu}: max|err| "
+                    f"{err:.3g} ({'ok' if ok else 'FAIL'})")
+                if not ok:
+                    raise AssertionError(f"in_relu {tag} parity failed")
+                worst = max(worst, err)
+        errs["in_relu"][tag] = worst
+
+        xp = torch.relu(torch.randn((64, 256, 36, 112), generator=gen,
+                                    device="cuda")).to(dtype)
+        kc = (torch.randn((256, 100), generator=gen, device="cuda")
+              / (49 * 64) ** 0.5).to(dtype)
+        bias4 = torch.randn(4, generator=gen, device="cuda") * 0.1
+        got = phase_head(xp, kc, bias4)
+        ref = phase_head_plain(xp, kc, bias4)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            err = float((got - ref).abs().max())
+            ok = err <= tol32["phase_head"]
+        else:
+            err, ok = bf16_tolerance_ok(got, ref)
+        log(f"  phase_head {tag} {tuple(xp.shape)}: max|err| {err:.3g} "
+            f"({'ok' if ok else 'FAIL'})")
+        if not ok:
+            raise AssertionError(f"phase_head {tag} parity failed")
+        errs["phase_head"][tag] = err
+    return errs
+
+
+def phase_reference(torch):
+    """The port on the card vs the port on the CPU, small fp32 config."""
+    import numpy as np
+
+    from affganwriting_torch.core.config import default_config
+    from affganwriting_torch.gen.inference import (
+        encode_labels,
+        make_generate_and_read_fn,
+    )
+
+    cfg = default_config().replace(
+        compute_dtype="float32", img_height=32, img_width=104, max_chars=6,
+        style_dim=64, adain_param_dim=512, text_embed_dim=16, rec_hidden=64,
+        rec_embed=16)
+    rng = np.random.default_rng(SEED)
+    style = rng.normal(size=(2, 32, 104, 50)).astype(np.float32)
+    labels = encode_labels(WORDS[:4], cfg.output_max_len)
+    cuda_run = make_generate_and_read_fn(cfg, seed=SEED)
+    cpu_run = make_generate_and_read_fn(cfg, seed=SEED, device="cpu")
+    img_gpu, _ = cuda_run(style, labels)
+    img_cpu, _ = cpu_run(style, labels)
+    err = float((img_gpu.cpu() - img_cpu).abs().max())
+    log(f"  images card vs CPU: max|err| {err:.3g} (tol 2e-3)")
+    if not err <= 2e-3:
+        raise AssertionError("port on the card disagrees with the CPU")
+    # R on the same images on both sides: logits close, ids equal where
+    # the top-2 margin is clear of the difference
+    with torch.inference_mode():
+        lab = torch.as_tensor(labels).long()
+        lg_cpu, _ = cpu_run.rec(img_cpu.permute(0, 3, 1, 2), lab)
+        lg_gpu, _ = cuda_run.rec(img_cpu.cuda().permute(0, 3, 1, 2),
+                                 lab.cuda())
+    lerr = float((lg_gpu.cpu() - lg_cpu).abs().max())
+    top2 = lg_cpu.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 10 * max(lerr, 1e-6)
+    same = lg_gpu.cpu().argmax(-1) == lg_cpu.argmax(-1)
+    log(f"  logits card vs CPU: max|err| {lerr:.3g} (tol 2e-3); greedy ids "
+        f"equal at {int(same.sum())}/{same.numel()} steps")
+    if not lerr <= 2e-3 or not bool(same[clear].all()):
+        raise AssertionError("recognizer on the card disagrees with the CPU")
+
+
+def phase_main_path(torch, launches, card: str):
+    import numpy as np
+
+    from affganwriting_torch.core.config import default_config
+    from affganwriting_torch.gen.inference import (
+        encode_labels,
+        make_generate_and_read_fn,
+    )
+    from affganwriting_torch.ops.in_relu_cuda import in_relu
+    from affganwriting_torch.ops.phase_head_cuda import phase_head
+
+    cfg = default_config()
+    t0 = time.perf_counter()
+    run = make_generate_and_read_fn(cfg, seed=SEED)
+    log(f"  models built with random weights (seed {SEED}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    stacks = rng.normal(size=(2, cfg.img_height, cfg.img_width,
+                              cfg.style_stack)).astype(np.float32)
+    requests = [(stacks[:1], WORDS * 32), (stacks[:1], WORDS),
+                (stacks, WORDS)]
+    in_relu.launches = phase_head.launches = 0
+    outs = []
+    for style, words in requests:
+        before = (in_relu.launches, phase_head.launches)
+        outs.append(run(style, encode_labels(words, cfg.output_max_len)))
+        if (in_relu.launches - before[0], phase_head.launches - before[1]) \
+                != (2, 1):
+            raise AssertionError("a generate call did not launch in_relu "
+                                 "twice and phase_head once")
+    torch.cuda.synchronize()
+    launches["in_relu"] = in_relu.launches
+    launches["phase_head"] = phase_head.launches
+    log(f"  launches over {len(requests)} requests: in_relu "
+        f"{launches['in_relu']}, phase_head {launches['phase_head']}")
+    for (style, words), (images, ids) in zip(requests, outs):
+        b = len(words)
+        if tuple(images.shape) != (b, cfg.img_height, cfg.img_width, 1) \
+                or tuple(ids.shape) != (b, cfg.output_max_len - 1):
+            raise AssertionError(f"bad shapes {tuple(images.shape)} "
+                                 f"{tuple(ids.shape)}")
+        img = images.float()
+        if not bool(torch.isfinite(img).all()) or float(img.abs().max()) > 1:
+            raise AssertionError("images not finite or outside [-1, 1]")
+        if int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab_size:
+            raise AssertionError("greedy ids outside the vocabulary")
+        log(f"  {style.shape[0]} writer(s) x {b} words: images "
+            f"{tuple(images.shape)} {images.dtype} in "
+            f"[{float(img.min()):.3f}, {float(img.max()):.3f}], ids "
+            f"{tuple(ids.shape)}; first word read as {ids[0].tolist()}")
+
+    style, words = requests[0]
+    labels = encode_labels(words, cfg.output_max_len)
+    for _ in range(3):
+        run(style, labels)
+    walls = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run(style, labels)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    wall = statistics.median(walls)
+    log(f"  256-word request: median {wall * 1e3:.3f} ms over 10 -> "
+        f"{len(words) / wall:.1f} imgs/s on {card}")
+    stages = stage_times(torch, run, style, labels)
+    profile = traced_request(torch, run, style, labels, wall * 1e3)
+    return {"imgs_per_s": len(words) / wall, "request_ms": wall * 1e3,
+            "stages_ms": stages, **profile}
+
+
+def stage_times(torch, run, style, labels):
+    """Device ms of each stage of the 256-word request (CUDA events, two
+    calls per event pair, median of 10 pairs)."""
+    from affganwriting_torch.tools.timing import cuda_ms
+
+    gen, rec = run.gen, run.rec
+    style_t = torch.as_tensor(style, device="cuda")
+    lab = torch.as_tensor(labels, device="cuda").long()
+    with torch.inference_mode():
+        pyramid = gen.encode_style(style_t)
+        images = gen.generate(pyramid, lab)
+        seq = rec.enc.sequence(images)
+        enc_out, h0 = rec.enc.rnn(seq)
+        stages = {
+            "G.encode_style": lambda: gen.encode_style(style_t),
+            "G.generate": lambda: gen.generate(pyramid, lab),
+            "R.trunk": lambda: rec.enc.sequence(images),
+            "R.bigru": lambda: rec.enc.rnn(seq),
+            "R.decode": lambda: rec.decode(enc_out, h0, lab),
+        }
+        stages = {k: cuda_ms(fn, iters=10, reps=2)
+                  for k, fn in stages.items()}
+    for k, v in stages.items():
+        log(f"  stage {k:16s} {v:9.3f} ms")
+    return stages
+
+
+def traced_request(torch, run, style, labels, request_ms: float):
+    """Kernel time per request from ``torch.profiler`` over 3 requests,
+    the device's idle share against the unprofiled median request time
+    (the profiler's own host cost would count as idle otherwise), the
+    launch count and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reps = 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run(style, labels)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no device time")
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    launches = sum(e.count for e in kernels) / reps
+    idle = 1 - kernel_ms / request_ms
+    log(f"  traced: kernel time {kernel_ms:.3f} ms a request, idle share "
+        f"{idle:.3f} of the unprofiled {request_ms:.3f} ms, "
+        f"{launches:.0f} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3 / reps:9.3f} ms "
+            f"{e.count // reps:5d}x  {e.key[:100]}")
+    return {"kernel_ms": kernel_ms, "idle_share": idle,
+            "launches_per_request": launches}
+
+
+def phase_kernel_times(torch, F, peaks):
+    from affganwriting_torch.models.blocks import depth_to_space
+    from affganwriting_torch.ops.in_relu_cuda import in_relu, in_relu_plain
+    from affganwriting_torch.ops.phase_head_cuda import (
+        phase_head,
+        phase_head_plain,
+    )
+    from affganwriting_torch.tools.timing import cuda_ms
+
+    mem_rate, bf16_rate, f32_rate = peaks
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    dt = torch.bfloat16
+    out = {}
+    row = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "bytes": 0, "ops": 0, "stages": []}
+    for shape in ((256, 256, 16, 54), (256, 128, 32, 108)):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        n = x.numel()
+        nbytes = 2 * n * x.element_size()
+        ops = 6 * n          # sum, square-add, subtract, scale, relu
+        bound = max(nbytes / mem_rate, ops / f32_rate) * 1e3
+        stage = {
+            "shape": list(shape),
+            "ms": cuda_ms(lambda: in_relu(x)),
+            "plain_ms": cuda_ms(lambda: in_relu_plain(x)),
+            "library_ms": cuda_ms(lambda: torch.relu(F.instance_norm(x))),
+            "bound_ms": bound,
+        }
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            row[k] += stage[k]
+        row["bytes"] += nbytes
+        row["ops"] += ops
+        row["stages"].append(stage)
+        log(f"  in_relu {shape} bf16: kernel {stage['ms']:.4f} ms, plain "
+            f"{stage['plain_ms']:.4f}, library {stage['library_ms']:.4f}, "
+            f"bound {bound:.4f} (bytes)")
+    row["bound_by"] = "bytes"
+    out["in_relu"] = row
+
+    b, c4, hp, wp = 256, 256, 36, 112
+    h, w = hp - 4, wp - 4
+    xp = torch.relu(torch.randn((b, c4, hp, wp), generator=gen,
+                                device="cuda")).to(dt)
+    kc = (torch.randn((c4, 100), generator=gen, device="cuda")
+          / (49 * 64) ** 0.5).to(dt)
+    bias4 = torch.randn(4, generator=gen, device="cuda") * 0.1
+    k4 = kc.view(c4, 25, 4).permute(2, 0, 1).reshape(4, c4, 5, 5) \
+        .contiguous()
+    bias_dt = bias4.to(dt)
+
+    def library():
+        y = torch.tanh(F.conv2d(xp, k4) + bias_dt.view(1, 4, 1, 1))
+        return depth_to_space(y)
+
+    nbytes = (xp.numel() + kc.numel() + b * 4 * h * w) * xp.element_size() \
+        + bias4.numel() * 4
+    ops = 2 * c4 * 100 * h * w * b
+    t_bytes, t_ops = nbytes / mem_rate * 1e3, ops / bf16_rate * 1e3
+    row = {
+        "ms": cuda_ms(lambda: phase_head(xp, kc, bias4)),
+        "plain_ms": cuda_ms(lambda: phase_head_plain(xp, kc, bias4)),
+        "library_ms": cuda_ms(library),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "ops": ops, "shape": [b, c4, hp, wp],
+    }
+    log(f"  phase_head {(b, c4, hp, wp)} bf16: kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f}, library {row['library_ms']:.4f}, "
+        f"bound {row['bound_ms']:.4f} ({row['bound_by']}; bytes "
+        f"{t_bytes:.4f}, operations {t_ops:.4f})")
+    out["phase_head"] = row
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke runs on the card",
+              file=sys.stderr)
+        return 2
+    import torch.nn.functional as F
+
+    from affganwriting_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 references in f32
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    part, peaks = card_peaks(name)
+    log(f"[1] device: {name}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; nvidia-smi: {smi}; peaks of the H100 {part} "
+        f"part: {peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.0f} TFLOP/s "
+        f"bf16, {peaks[2] / 1e12:.0f} TFLOP/s f32")
+    t0 = time.perf_counter()
+    lib_path, build_log = cuda_build.build()
+    build_s = time.perf_counter() - t0
+    log(f"    built {lib_path} in {build_s:.1f} s")
+    for line in build_log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            log(f"    {line.strip()}")
+    cuda_build.library()
+
+    log("[2] kernel parity vs the plain versions (batch 64)")
+    errs = phase_parity(torch)
+    log("[3] reference: port on the card vs port on the CPU, small fp32 "
+        "config")
+    phase_reference(torch)
+    log("[4] main path at full width (default_config, bf16)")
+    launches: dict[str, int] = {}
+    main_path = phase_main_path(torch, launches, smi)
+    log("[5] kernel times at batch 256, bf16")
+    times = phase_kernel_times(torch, F, peaks)
+
+    sources = {"in_relu": ("affganwriting_torch/csrc/in_relu.cu",
+                           "affganwriting_tpu/ops/in_relu_pallas.py:51"),
+               "phase_head": ("affganwriting_torch/csrc/phase_head.cu",
+                              "affganwriting_tpu/ops/phase_head_pallas.py:72")}
+    kernels = []
+    for k, (src, replaces) in sources.items():
+        t = times[k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[k], "max_abs_err": errs[k]["bf16"],
+            "max_abs_err_f32": errs[k]["f32"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "detail": {kk: v for kk, v in t.items()
+                       if kk not in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+        })
+    log(json.dumps({"main_path": main_path, "build_s": build_s}))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,57 @@
+"""The port stands alone: no jax, flax or JAX-package import, and no silent
+CPU run."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(2)   # tier-1 runs six xdist workers
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_CHECK = """
+import importlib, pkgutil, sys
+import affganwriting_torch
+names = [m.name for m in pkgutil.walk_packages(
+    affganwriting_torch.__path__, "affganwriting_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                    "affganwriting_tpu"))
+print(len(names), bad)
+assert not bad, bad
+assert len(names) >= 20, names
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_need_a_card_or_an_explicit_cpu():
+    from affganwriting_torch.gen.inference import (
+        build_generator,
+        build_models,
+        build_recognizer,
+        make_generate_and_read_fn,
+        make_generate_fn,
+    )
+    from test_torch_support import small_torch_config
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    for fn in (build_models, build_generator, build_recognizer,
+               make_generate_fn, make_generate_and_read_fn):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(small_torch_config())
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(small_torch_config(), device="cuda")
