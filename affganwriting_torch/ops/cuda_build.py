@@ -55,12 +55,17 @@ def _source_hash(sources: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def library_path() -> Path:
+    """Where ``build`` puts the library of the sources as they are now."""
+    key = _source_hash(sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")))
+    return BUILD_ROOT / key / LIB_NAME
+
+
 def build() -> tuple[Path, str]:
     """Compile (if not cached) and return (library path, compiler log)."""
     units = sorted(CSRC.glob("*.cu"))
-    key = _source_hash(units + sorted(CSRC.glob("*.cuh")))
-    out_dir = BUILD_ROOT / key
-    lib = out_dir / LIB_NAME
+    lib = library_path()
+    out_dir = lib.parent
     log_path = out_dir / "build.log"
     with _build_lock:
         if lib.is_file():

@@ -10,17 +10,24 @@ non-zero before printing any result.  Phases, each fatal on failure:
 1. device and build: card, versions, ``nvidia-smi`` name and power limit;
    builds ``affganwriting_torch/csrc/*.cu`` and prints the build seconds;
 2. kernel parity at the main path's shapes (batch 64), f32 and bf16,
-   including ReLU off and a duplicated plane;
+   including ReLU off and a duplicated plane; ``phase_head`` on both
+   routes (f32: the CUDA-core kernel, 1e-4; bf16: the wgmma kernel,
+   2^-6 x max(1, |ref|)), the bf16 route also at batch 1 and with a strip
+   height that does not divide h, with one and with two 64-pixel halves;
+   bf16 shapes the wgmma kernel does not take must raise;
 3. reference: the port on the card vs the port on the CPU (plain versions,
    themselves held against the JAX package by ``tests/test_torch_*.py``) on
    a small fp32 config;
 4. main path: ``default_config()`` (resnet50 G, seq2seq R, 64x216, bf16),
    random weights from a seed, three requests (1 writer x 256 words,
    1 x 8, 2 x 8) with the launch counters set to 0 just before and read
-   just after; then the 256-word request timed, each stage's device time,
-   and one ``torch.profiler`` trace (kernel time, idle share, top kernels);
-5. kernel times at batch 256 beside the plain version, one library call
-   and the card's bound (CUDA events, 20 launches per event pair).
+   just after, each generate call checked to launch ``in_relu`` twice and
+   ``phase_head`` once on its wgmma route; then the 256-word request
+   timed, each stage's device time, and one ``torch.profiler`` trace
+   (kernel time, idle share, top kernels);
+5. kernel times beside the plain version, one library call and the card's
+   bound (CUDA events, 20 launches per event pair): ``in_relu`` at batch
+   256, ``phase_head`` at batch 256 and 8.
 
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
@@ -29,6 +36,7 @@ The last lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -62,6 +70,25 @@ def card_peaks(name: str):
         if key in name:
             return key, CARD_PEAKS[key]
     return "SXM", CARD_PEAKS["SXM"]
+
+
+def ptxas_info(build_log: str, kernel: str) -> dict:
+    """Registers and spill bytes that ``nvcc -Xptxas -v`` reported for each
+    entry function whose mangled name contains ``kernel``, by its mangled
+    template arguments (``ILb1E`` for ``<true>``) where it has any."""
+    info, cur = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(kernel + r"(I\w*?E)?E", line)
+            cur = info.setdefault(m.group(1) or kernel, {}) if m else None
+        elif cur is not None and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            cur.update({f"spill_{k}": int(v) for v, k in nums})
+        elif cur is not None and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+            cur = None
+    return info
 
 
 def bf16_tolerance_ok(got, ref) -> tuple[float, bool]:
@@ -109,24 +136,49 @@ def phase_parity(torch):
                 worst = max(worst, err)
         errs["in_relu"][tag] = worst
 
-        xp = torch.relu(torch.randn((64, 256, 36, 112), generator=gen,
-                                    device="cuda")).to(dtype)
-        kc = (torch.randn((256, 100), generator=gen, device="cuda")
-              / (49 * 64) ** 0.5).to(dtype)
-        bias4 = torch.randn(4, generator=gen, device="cuda") * 0.1
-        got = phase_head(xp, kc, bias4)
-        ref = phase_head_plain(xp, kc, bias4)
-        torch.cuda.synchronize()
-        if dtype == torch.float32:
-            err = float((got - ref).abs().max())
-            ok = err <= tol32["phase_head"]
+        worst = 0.0
+        shapes = [(64, 256, 36, 112)]
+        if dtype == torch.bfloat16:
+            # batch 1; strips of R = 7 rows, which do not divide h = 20,
+            # with one 64-pixel half (w+4 = 64) and a ragged second half
+            shapes += [(1, 256, 36, 112), (44, 256, 24, 64),
+                       (44, 256, 24, 72)]
+        for shape in shapes:
+            xp = torch.relu(torch.randn(shape, generator=gen,
+                                        device="cuda")).to(dtype)
+            kc = (torch.randn((256, 100), generator=gen, device="cuda")
+                  / (49 * 64) ** 0.5).to(dtype)
+            bias4 = torch.randn(4, generator=gen, device="cuda") * 0.1
+            before = (phase_head.launches, phase_head.launches_wgmma)
+            got = phase_head(xp, kc, bias4)
+            ref = phase_head_plain(xp, kc, bias4)
+            torch.cuda.synchronize()
+            route = (phase_head.launches - before[0],
+                     phase_head.launches_wgmma - before[1])
+            if route != ((1, 0) if dtype == torch.float32 else (0, 1)):
+                raise AssertionError(f"phase_head {tag} took the wrong route "
+                                     f"{route}")
+            if dtype == torch.float32:
+                err = float((got - ref).abs().max())
+                ok = err <= tol32["phase_head"]
+            else:
+                err, ok = bf16_tolerance_ok(got, ref)
+            log(f"  phase_head {tag} {shape}: max|err| "
+                f"{err:.3g} ({'ok' if ok else 'FAIL'})")
+            if not ok:
+                raise AssertionError(f"phase_head {tag} parity failed")
+            worst = max(worst, err)
+        errs["phase_head"][tag] = worst
+    # bf16 shapes the wgmma kernel does not take raise, with no fallback
+    kc = torch.zeros((96, 100), device="cuda", dtype=torch.bfloat16)
+    for shape in ((2, 96, 36, 112), (2, 64, 36, 60), (2, 64, 36, 136)):
+        xp = torch.zeros(shape, device="cuda", dtype=torch.bfloat16)
+        try:
+            phase_head(xp, kc[:shape[1]], torch.zeros(4))
+        except ValueError as e:
+            log(f"  phase_head bf16 {shape} refused: {e}")
         else:
-            err, ok = bf16_tolerance_ok(got, ref)
-        log(f"  phase_head {tag} {tuple(xp.shape)}: max|err| {err:.3g} "
-            f"({'ok' if ok else 'FAIL'})")
-        if not ok:
-            raise AssertionError(f"phase_head {tag} parity failed")
-        errs["phase_head"][tag] = err
+            raise AssertionError(f"phase_head took bf16 {shape}")
     return errs
 
 
@@ -193,20 +245,25 @@ def phase_main_path(torch, launches, card: str):
                               cfg.style_stack)).astype(np.float32)
     requests = [(stacks[:1], WORDS * 32), (stacks[:1], WORDS),
                 (stacks, WORDS)]
-    in_relu.launches = phase_head.launches = 0
+    def counts():
+        return (in_relu.launches, phase_head.launches_wgmma,
+                phase_head.launches)
+
+    in_relu.launches = phase_head.launches_wgmma = phase_head.launches = 0
     outs = []
     for style, words in requests:
-        before = (in_relu.launches, phase_head.launches)
+        before = counts()
         outs.append(run(style, encode_labels(words, cfg.output_max_len)))
-        if (in_relu.launches - before[0], phase_head.launches - before[1]) \
-                != (2, 1):
-            raise AssertionError("a generate call did not launch in_relu "
-                                 "twice and phase_head once")
+        if tuple(a - b for a, b in zip(counts(), before)) != (2, 1, 0):
+            raise AssertionError("a bf16 generate call did not launch "
+                                 "in_relu twice and phase_head once, on "
+                                 "its wgmma route")
     torch.cuda.synchronize()
-    launches["in_relu"] = in_relu.launches
-    launches["phase_head"] = phase_head.launches
+    launches["in_relu"], launches["phase_head"], launches["phase_head_f32"] \
+        = counts()
     log(f"  launches over {len(requests)} requests: in_relu "
-        f"{launches['in_relu']}, phase_head {launches['phase_head']}")
+        f"{launches['in_relu']}, phase_head wgmma route "
+        f"{launches['phase_head']}, f32 route {launches['phase_head_f32']}")
     for (style, words), (images, ids) in zip(requests, outs):
         b = len(words)
         if tuple(images.shape) != (b, cfg.img_height, cfg.img_width, 1) \
@@ -307,6 +364,7 @@ def phase_kernel_times(torch, F, peaks):
     from affganwriting_torch.ops.phase_head_cuda import (
         phase_head,
         phase_head_plain,
+        strip_rows,
     )
     from affganwriting_torch.tools.timing import cuda_ms
 
@@ -340,37 +398,46 @@ def phase_kernel_times(torch, F, peaks):
     row["bound_by"] = "bytes"
     out["in_relu"] = row
 
-    b, c4, hp, wp = 256, 256, 36, 112
-    h, w = hp - 4, wp - 4
-    xp = torch.relu(torch.randn((b, c4, hp, wp), generator=gen,
-                                device="cuda")).to(dt)
-    kc = (torch.randn((c4, 100), generator=gen, device="cuda")
-          / (49 * 64) ** 0.5).to(dt)
-    bias4 = torch.randn(4, generator=gen, device="cuda") * 0.1
-    k4 = kc.view(c4, 25, 4).permute(2, 0, 1).reshape(4, c4, 5, 5) \
-        .contiguous()
-    bias_dt = bias4.to(dt)
+    def head_row(b):
+        c4, hp, wp = 256, 36, 112
+        h, w = hp - 4, wp - 4
+        xp = torch.relu(torch.randn((b, c4, hp, wp), generator=gen,
+                                    device="cuda")).to(dt)
+        kc = (torch.randn((c4, 100), generator=gen, device="cuda")
+              / (49 * 64) ** 0.5).to(dt)
+        bias4 = torch.randn(4, generator=gen, device="cuda") * 0.1
+        k4 = kc.view(c4, 25, 4).permute(2, 0, 1).reshape(4, c4, 5, 5) \
+            .contiguous()
+        bias_dt = bias4.to(dt)
 
-    def library():
-        y = torch.tanh(F.conv2d(xp, k4) + bias_dt.view(1, 4, 1, 1))
-        return depth_to_space(y)
+        def library():
+            y = torch.tanh(F.conv2d(xp, k4) + bias_dt.view(1, 4, 1, 1))
+            return depth_to_space(y)
 
-    nbytes = (xp.numel() + kc.numel() + b * 4 * h * w) * xp.element_size() \
-        + bias4.numel() * 4
-    ops = 2 * c4 * 100 * h * w * b
-    t_bytes, t_ops = nbytes / mem_rate * 1e3, ops / bf16_rate * 1e3
-    row = {
-        "ms": cuda_ms(lambda: phase_head(xp, kc, bias4)),
-        "plain_ms": cuda_ms(lambda: phase_head_plain(xp, kc, bias4)),
-        "library_ms": cuda_ms(library),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": nbytes, "ops": ops, "shape": [b, c4, hp, wp],
-    }
-    log(f"  phase_head {(b, c4, hp, wp)} bf16: kernel {row['ms']:.4f} ms, "
-        f"plain {row['plain_ms']:.4f}, library {row['library_ms']:.4f}, "
-        f"bound {row['bound_ms']:.4f} ({row['bound_by']}; bytes "
-        f"{t_bytes:.4f}, operations {t_ops:.4f})")
+        nbytes = (xp.numel() + kc.numel() + b * 4 * h * w) \
+            * xp.element_size() + bias4.numel() * 4
+        ops = 2 * c4 * 100 * h * w * b
+        t_bytes, t_ops = nbytes / mem_rate * 1e3, ops / bf16_rate * 1e3
+        r = strip_rows(b, h, sms)
+        row = {
+            "ms": cuda_ms(lambda: phase_head(xp, kc, bias4)),
+            "plain_ms": cuda_ms(lambda: phase_head_plain(xp, kc, bias4)),
+            "library_ms": cuda_ms(library),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "shape": [b, c4, hp, wp],
+            "strip_rows": r,
+        }
+        log(f"  phase_head {(b, c4, hp, wp)} bf16, R = {r}: kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
+            f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']}; bytes {t_bytes:.4f}, operations "
+            f"{t_ops:.4f})")
+        return row
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row = head_row(256)
+    row["batch8"] = head_row(8)
     out["phase_head"] = row
     return out
 
@@ -395,10 +462,12 @@ def main() -> int:
         f"{torch.version.cuda}; nvidia-smi: {smi}; peaks of the H100 {part} "
         f"part: {peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.0f} TFLOP/s "
         f"bf16, {peaks[2] / 1e12:.0f} TFLOP/s f32")
+    cached = cuda_build.library_path().is_file()
     t0 = time.perf_counter()
     lib_path, build_log = cuda_build.build()
     build_s = time.perf_counter() - t0
-    log(f"    built {lib_path} in {build_s:.1f} s")
+    log(f"    {'cached build found at' if cached else 'built'} {lib_path} in "
+        f"{build_s:.1f} s")
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"    {line.strip()}")
@@ -415,6 +484,11 @@ def main() -> int:
     log("[5] kernel times at batch 256, bf16")
     times = phase_kernel_times(torch, F, peaks)
 
+    times["phase_head"].update({
+        "route": "wgmma+tma",
+        "ptxas_wgmma": ptxas_info(build_log, "phase_head_wgmma_kernel"),
+        "ptxas_from": "cached build.log" if cached else "this build",
+        "f32_route_launches": launches["phase_head_f32"]})
     sources = {"in_relu": ("affganwriting_torch/csrc/in_relu.cu",
                            "affganwriting_tpu/ops/in_relu_pallas.py:51"),
                "phase_head": ("affganwriting_torch/csrc/phase_head.cu",
