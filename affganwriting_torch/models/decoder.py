@@ -1,18 +1,22 @@
 """AdaIN decoder: (B, 512, 8, 27) content -> (B, 1, 64, 216) word image.
 
-Port of ``affganwriting_tpu/models/decoder.py`` (serving path, NCHW): two
+Port of ``affganwriting_tpu/models/decoder.py`` (NCHW): two
 AdaIN residual blocks whose second AdaIN site fuses a style-pyramid skip
 through iAFF, three 2x upsample + 5x5 conv stages with instance norm + ReLU,
-and a 7x7 tanh head.
+and a 7x7 tanh head.  BatchNorm and the choice below follow the module's
+train/eval mode, as the JAX package's ``train`` argument does.
 
 Subpixel mode (default) folds each upsample+conv pair into four 3x3 phase
 kernels, keeps the last stage in phase layout (channels packed (p, q, c))
 and runs the folded head in phase layout; exact mode upsamples and convolves
-at full resolution.  Both share one parameter set.  The two spatial-layout
-instance norms (and all three in exact mode) run ``ops/in_relu_cuda.in_relu``
-and the subpixel head runs ``ops/phase_head_cuda.phase_head``: the CUDA
-kernels on the card, their plain versions on the CPU.  The kernels are
-forward-only, like the JAX package's Pallas kernels.
+at full resolution.  Both share one parameter set.  In eval mode the two
+spatial-layout instance norms (and all three in exact mode) run
+``ops/in_relu_cuda.in_relu`` and the subpixel head runs
+``ops/phase_head_cuda.phase_head``: the CUDA kernels on the card, their
+plain versions on the CPU.  The kernels are forward-only, like the JAX
+package's Pallas kernels, so in train mode (the JAX gate ``not train``)
+the norms are ``relu(instance_norm(x))`` and the head is the einsum and 25
+shifted slices of ``fold_head``, all in autograd.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from torch import nn
 from affganwriting_torch.models.aff import AdaINFusion
 from affganwriting_torch.models.blocks import Conv2d, depth_to_space, pad2d
 from affganwriting_torch.ops.in_relu_cuda import in_relu
+from affganwriting_torch.ops.norms import instance_norm
 from affganwriting_torch.ops.phase_head_cuda import phase_head
 
 
@@ -91,6 +96,22 @@ def fold_head_kernel(k: torch.Tensor) -> torch.Tensor:
     return k4.reshape(4 * c, 100)
 
 
+def fold_head(xp: torch.Tensor, kc: torch.Tensor,
+              bias4: torch.Tensor) -> torch.Tensor:
+    """The phase head as the JAX package computes it without its kernel, in
+    xp's dtype: z = xp . kc to tap-major (B, 100, h+4, w+4), the 25 shifted
+    slices added in order, bias, tanh, depth-to-space -> (B, 1, 2h, 2w)."""
+    b, _, hp, wp = xp.shape
+    h, w = hp - 4, wp - 4
+    z = torch.einsum("bchw,ck->bkhw", xp, kc)
+    y = z.new_zeros(b, 4, h, w)
+    for t in range(25):
+        dy, dx = divmod(t, 5)
+        y = y + z[:, 4 * t:4 * t + 4, dy:dy + h, dx:dx + w]
+    y = y + bias4.to(y.dtype).view(1, 4, 1, 1)
+    return depth_to_space(torch.tanh(y))
+
+
 class UpsampleConv(nn.Module):
     """2x nearest upsample + 5x5 reflect-pad conv; ``subpixel`` runs it as
     one low-res 3x3 conv with the folded phase kernels, ``emit_phase``
@@ -130,8 +151,10 @@ class PhaseHead(nn.Module):
 
     def forward(self, x4):
         kc = fold_head_kernel(self.weight)
-        xp = pad2d(x4, 2, "reflect")                  # (B, 4C, h+4, w+4)
-        return phase_head(xp.to(self.dtype).contiguous(), kc.to(self.dtype),
+        xp = pad2d(x4, 2, "reflect").to(self.dtype)  # (B, 4C, h+4, w+4)
+        if self.training:
+            return fold_head(xp, kc.to(self.dtype), self.bias.repeat(4))
+        return phase_head(xp.contiguous(), kc.to(self.dtype),
                           self.bias.repeat(4))
 
 
@@ -202,6 +225,8 @@ class Decoder(nn.Module):
             x = getattr(self, f"up{i}")(x)
             if self.subpixel and i == self.ups - 1:
                 x = torch.relu(instance_norm_phase(x))
+            elif self.training:
+                x = torch.relu(instance_norm(x))
             else:
                 x = in_relu(x.contiguous())
         return self.head(x)

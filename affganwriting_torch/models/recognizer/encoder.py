@@ -4,7 +4,10 @@ Port of ``affganwriting_tpu/models/recognizer/encoder.py``: cfg-'E' VGG19
 with BatchNorm (4 max-pools: 64x216 -> 4x13x512), gray input repeated to 3
 channels, the trunk flattened to a width-major sequence whose features are
 ordered h-major (index h*C + c), and a bidirectional GRU whose two
-directions are summed.  Serving only: the dropouts of training are absent.
+directions are summed.  In train mode the trunk's BatchNorms use batch
+statistics, whole (n, c) channels of the trunk output drop out
+(``Dropout2d``), and so does the first GRU layer's output; masks come from
+the ``generator`` passed in.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from affganwriting_torch.models.blocks import BatchNorm, Conv2d
+from affganwriting_torch.models.blocks import BatchNorm, Conv2d, dropout
 
 _VGG19_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
               512, 512, 512, 512, "M", 512, 512, 512, 512)
@@ -47,41 +50,53 @@ class VGGTrunk(nn.Module):
 
 
 class BiGRU(nn.Module):
-    """2-layer bidirectional GRU, outputs summed over directions.
+    """Bidirectional GRU layers ``gru0``, ``gru1``, outputs summed over
+    directions, with dropout between the layers in train mode.
 
     Returns (outputs (B, T, H), dec_init_hidden (layers, B, H)): the
     decoder's initial state is the *backward* final state of each layer."""
 
-    def __init__(self, input_size: int, hidden: int = 512, layers: int = 2):
+    def __init__(self, input_size: int, hidden: int = 512, layers: int = 2,
+                 dropout: float = 0.5):
         super().__init__()
-        self.hidden = hidden
-        self.gru = nn.GRU(input_size, hidden, num_layers=layers,
-                          bidirectional=True, batch_first=True)
+        self.hidden, self.layers, self.dropout = hidden, layers, dropout
+        for li in range(layers):
+            self.add_module(f"gru{li}", nn.GRU(
+                input_size if li == 0 else 2 * hidden, hidden,
+                bidirectional=True, batch_first=True))
 
-    def forward(self, x):
-        out, h_n = self.gru(x)          # h_n: (layers*2, B, H), fwd/bwd
-        out = out[..., :self.hidden] + out[..., self.hidden:]
-        return out, h_n[1::2]
+    def forward(self, x, generator: torch.Generator | None = None):
+        finals = []
+        for li in range(self.layers):
+            x, h_n = getattr(self, f"gru{li}")(x)  # h_n: (2, B, H), fwd/bwd
+            finals.append(h_n[1])
+            if self.training and li < self.layers - 1:
+                x = dropout(x, self.dropout, generator)
+        out = x[..., :self.hidden] + x[..., self.hidden:]
+        return out, torch.stack(finals)
 
 
 class RecEncoder(nn.Module):
     """(B, 1 or 3, H, W) word image -> (enc_out (B, W/16, hidden), h0)."""
 
     def __init__(self, hidden: int = 512, img_height: int = 64,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, dropout: float = 0.5):
         super().__init__()
+        self.dropout = dropout
         self.vgg = VGGTrunk(dtype)
-        self.rnn = BiGRU((img_height // 16) * 512, hidden)
+        self.rnn = BiGRU((img_height // 16) * 512, hidden, dropout=dropout)
 
-    def sequence(self, img):
+    def sequence(self, img, generator: torch.Generator | None = None):
         """The VGG trunk's features as the BiGRU's f32 input (B, W/16,
         (H/16) * 512)."""
         if img.shape[1] == 1:
             img = img.expand(-1, 3, -1, -1)
         feat = self.vgg(img)
+        if self.training:
+            feat = dropout(feat, self.dropout, generator, channels=True)
         b, c, h, w = feat.shape
         # width is the sequence axis; features flatten (height, channel)
         return feat.permute(0, 3, 2, 1).reshape(b, w, h * c).float()
 
-    def forward(self, img):
-        return self.rnn(self.sequence(img))
+    def forward(self, img, generator: torch.Generator | None = None):
+        return self.rnn(self.sequence(img, generator), generator)

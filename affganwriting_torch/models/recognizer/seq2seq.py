@@ -4,7 +4,11 @@ Port of ``affganwriting_tpu/models/recognizer/seq2seq.py`` (``DecoderCell``
 and ``Recognizer.__call__``/``decode`` with no teacher forcing): the JAX
 ``nn.scan`` over ``output_max_len - 1`` steps is a Python loop here.  The
 decoder runs in f32 whatever the trunk's compute dtype, as in the JAX
-package.
+package.  In train mode (the GAN step's free-running decoding) the first
+GRU layer's output drops out before the second, with a fresh mask each
+step, and the encoder's dropouts and batch statistics apply; masks come
+from the ``generator`` passed in.  The greedy feedback is an ``argmax``,
+which carries no gradient, in the JAX package as here.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import torch
 from torch import nn
 
 from affganwriting_torch.core.config import VOCAB
+from affganwriting_torch.models.blocks import dropout
 from affganwriting_torch.models.recognizer.attention import LocationAttention
 from affganwriting_torch.models.recognizer.encoder import RecEncoder
 
@@ -21,23 +26,34 @@ class DecoderCell(nn.Module):
     """One decode step: attention -> context -> 2-layer GRU -> logits."""
 
     def __init__(self, vocab_size: int = VOCAB.size, hidden: int = 512,
-                 embed_dim: int = 60):
+                 embed_dim: int = 60, dropout: float = 0.5):
         super().__init__()
+        self.dropout = dropout
         self.attention = LocationAttention(hidden)
         self.embedding = nn.Embedding(vocab_size, embed_dim)
         self.gru0 = nn.GRUCell(embed_dim + hidden, hidden)
         self.gru1 = nn.GRUCell(hidden, hidden)
         self.out = nn.Linear(hidden, vocab_size)
 
-    def forward(self, hidden, prev_attn, prev_id, enc_out):
+    def forward(self, hidden, prev_attn, prev_id, enc_out,
+                generator: torch.Generator | None = None):
         """hidden (2, B, H), prev_attn (B, T), prev_id (B,), enc_out
         (B, T, H) -> (new hidden, attn, logits (B, V))."""
         attn = self.attention(hidden, enc_out, prev_attn)
         context = torch.einsum("bt,bth->bh", attn, enc_out)
         x = torch.cat([self.embedding(prev_id), context], dim=-1)
         h0 = self.gru0(x, hidden[0])
-        h1 = self.gru1(h0, hidden[1])
+        x = dropout(h0, self.dropout, generator) if self.training else h0
+        h1 = self.gru1(x, hidden[1])
         return torch.stack([h0, h1]), attn, self.out(h1)
+
+
+def _keep_n_gate(hidden: int):
+    """Gradient hook of a GRU's ``bias_hh`` ([r, z, n] x hidden): zero on
+    the r and z thirds."""
+    def hook(grad):
+        return torch.cat([grad.new_zeros(2 * hidden), grad[2 * hidden:]])
+    return hook
 
 
 class Recognizer(nn.Module):
@@ -47,23 +63,32 @@ class Recognizer(nn.Module):
 
     def __init__(self, vocab_size: int = VOCAB.size, hidden: int = 512,
                  embed_dim: int = 60, output_max_len: int = 12,
-                 img_height: int = 64, dtype: torch.dtype = torch.bfloat16):
+                 img_height: int = 64, dtype: torch.dtype = torch.bfloat16,
+                 dropout: float = 0.5):
         super().__init__()
         self.output_max_len = output_max_len
-        self.enc = RecEncoder(hidden, img_height, dtype)
-        self.dec = DecoderCell(vocab_size, hidden, embed_dim)
+        self.enc = RecEncoder(hidden, img_height, dtype, dropout)
+        self.dec = DecoderCell(vocab_size, hidden, embed_dim, dropout)
+        # flax's GRU cell has no recurrent bias on its r and z gates; torch
+        # carries one beside the input bias, which training would move as
+        # well (twice the step on those gates), so it is held at 0
+        for name, p in self.named_parameters():
+            if name.rsplit(".", 1)[-1].startswith("bias_hh"):
+                p.register_hook(_keep_n_gate(hidden))
 
-    def forward(self, img, labels):
-        enc_out, hidden0 = self.enc(img)
-        return self.decode(enc_out, hidden0, labels)
+    def forward(self, img, labels, generator: torch.Generator | None = None):
+        enc_out, hidden0 = self.enc(img, generator)
+        return self.decode(enc_out, hidden0, labels, generator)
 
-    def decode(self, enc_out, hidden0, labels):
+    def decode(self, enc_out, hidden0, labels,
+               generator: torch.Generator | None = None):
         hidden = hidden0
         attn = enc_out.new_zeros(enc_out.shape[:2])
         prev = labels[:, 0]
         logits, attns = [], []
         for _ in range(self.output_max_len - 1):
-            hidden, attn, step_logits = self.dec(hidden, attn, prev, enc_out)
+            hidden, attn, step_logits = self.dec(hidden, attn, prev, enc_out,
+                                                 generator)
             prev = step_logits.argmax(dim=-1)   # ties: first index, as jnp
             logits.append(step_logits)
             attns.append(attn)

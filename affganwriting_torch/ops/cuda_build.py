@@ -138,6 +138,15 @@ def require_cuda_tensor(t: torch.Tensor, what: str) -> None:
                         "(float32, bfloat16)")
     if not t.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous")
-    if t.requires_grad:
-        raise ValueError(f"{what}: the kernel is forward-only; call it "
-                         "under torch.no_grad() or torch.inference_mode()")
+
+
+def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
+    """The kernels are forward-only and launch outside autograd, so with
+    grad mode on an input that requires grad would give an output with no
+    ``grad_fn``, and every loss behind it would silently give no gradient.
+    Raise instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel is forward-only and an input requires "
+            "grad; call it under torch.no_grad() or torch.inference_mode(), "
+            "or use the model's train mode, which does not call it")

@@ -12,7 +12,8 @@ block owns one plane, holds it in registers, reduces its f32 statistics
 and writes it normalized: one read, one write, no C % 128 restriction.
 Planes are limited to 16,384 elements, a multiple of 8 (16-byte vectors).
 
-A CUDA tensor goes to the kernel or raises; a CPU tensor goes to
+A CUDA tensor goes to the kernel or raises (also when it requires grad
+with grad mode on: the kernel is forward-only); a CPU tensor goes to
 ``in_relu_plain``, which is also the reference the kernel is held against.
 """
 
@@ -43,6 +44,7 @@ def in_relu(x: torch.Tensor, eps: float = 1e-5,
     if x.device.type == "cpu":
         return in_relu_plain(x, eps, relu)
     cuda_build.require_cuda_tensor(x, "in_relu")
+    cuda_build.refuse_autograd("in_relu", x)
     if x.dim() != 4:
         raise ValueError(f"in_relu: expected (N, C, H, W), got {tuple(x.shape)}")
     n, c, h, w = x.shape

@@ -25,8 +25,9 @@ Two routes, chosen by dtype (no fallback from one to the other):
   ``phase_head.launches``: the exact-f32 reference runs, which TF32 tensor
   cores would not hold to 1e-4.
 
-A CPU tensor goes to ``phase_head_plain``, which is also the reference both
-kernels are held against.
+Both kernels are forward-only: a CUDA input that requires grad with grad
+mode on raises.  A CPU tensor goes to ``phase_head_plain``, which is also
+the reference both kernels are held against.
 """
 
 from __future__ import annotations
@@ -158,6 +159,7 @@ def phase_head(xp: torch.Tensor, kc: torch.Tensor,
         return phase_head_plain(xp, kc, bias4)
     cuda_build.require_cuda_tensor(xp, "phase_head xp")
     cuda_build.require_cuda_tensor(kc, "phase_head kc")
+    cuda_build.refuse_autograd("phase_head", xp, kc, bias4)
     f32 = xp.dtype == torch.float32
     route = "f32" if f32 else "bf16, wgmma"
     if f32:

@@ -13,7 +13,8 @@ caller hands the flax trees over as nested dicts of numpy arrays
 - GRU cells (``ir iz in`` with bias, ``hr hz`` without, ``hn`` with) stack
   as torch's [r, z, n] with ``bias_hh = [0, 0, b_hn]``.  The recognizer's
   BiGRU keeps its four cells at ``enc/rnn/GRUCell_0..3`` in the order fwd0,
-  bwd0, fwd1, bwd1 (layer k // 2, reversed when k is odd); the decoder's
+  bwd0, fwd1, bwd1: cell k goes to the one-layer bidirectional ``gru{k //
+  2}``, its ``_reverse`` weights when k is odd; the decoder's
   cells are ``dec/gru0`` and ``dec/gru1``.
 
 ``from_flax`` raises on any flax leaf it did not consume, and on any port
@@ -31,6 +32,7 @@ import torch
 from affganwriting_torch.core.config import WordGanConfig
 from affganwriting_torch.models.generator import Generator
 from affganwriting_torch.models.recognizer.seq2seq import Recognizer
+from affganwriting_torch.train.state import PLAYERS, new_models
 
 _GRU_GATES = frozenset(("ir", "iz", "in", "hr", "hz", "hn"))
 _KERNEL_PERM = {4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}
@@ -71,8 +73,8 @@ def _walk(node: Mapping, path: tuple, collection: str, out: dict,
                 m = re.fullmatch(r"GRUCell_(\d+)", name)
                 if m:       # a BiGRU cell: layer k // 2, odd k reversed
                     k = int(m.group(1))
-                    prefix = _key(*path, "gru")
-                    suffix = f"_l{k // 2}" + ("_reverse" if k % 2 else "")
+                    prefix = _key(*path, f"gru{k // 2}")
+                    suffix = "_l0" + ("_reverse" if k % 2 else "")
                 else:
                     prefix, suffix = _key(*p), ""
                 _gru(child, prefix, suffix, (collection,) + p, out, consumed)
@@ -131,6 +133,24 @@ def convert_module(variables: Mapping, module: torch.nn.Module) -> dict:
     if problems:
         raise ValueError(f"from_flax ({type(module).__name__}): "
                          + "; ".join(problems))
+    return out
+
+
+def word_gan_from_flax(jax_state, config: WordGanConfig) -> dict:
+    """A JAX ``WordGanState`` with numpy leaves (``jax.tree.map(np.asarray,
+    state)``) -> {"gen", "dis", "cla", "rec"} state dicts for
+    ``train/state.py:init_state(weights=...)``: every player's params and
+    batch statistics, with ``convert_module``'s leaf accounting.  Optimizer
+    moments are not carried."""
+    with torch.device("meta"):
+        models = new_models(config)
+    out = {}
+    for name in PLAYERS:
+        player = getattr(jax_state, name)
+        variables = {"params": player.params}
+        if player.stats:
+            variables["batch_stats"] = player.stats
+        out[name] = convert_module(variables, models[name])
     return out
 
 

@@ -27,7 +27,16 @@ non-zero before printing any result.  Phases, each fatal on failure:
    (kernel time, idle share, top kernels);
 5. kernel times beside the plain version, one library call and the card's
    bound (CUDA events, 20 launches per event pair): ``in_relu`` at batch
-   256, ``phase_head`` at batch 256 and 8.
+   256, ``phase_head`` at batch 256 and 8;
+6. train: one merged step of the port on the card vs on the CPU (small
+   fp32 config: losses, fakes, every player's delta, G's and R's new
+   running statistics); then ``default_config()`` at full width (bf16,
+   Adam, batch 8): 3 warm-up and 10 timed steps with finite losses, all
+   four players moved, G's and R's running statistics moved and R's not in
+   the G phase, no kernel launched by a train step; step time, words/s,
+   per-phase device time, peak memory and one traced step; one eval step,
+   which must launch ``in_relu`` 4 times and ``phase_head`` twice; one
+   4-phase step; the merged step at batch 64.
 
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
@@ -36,6 +45,7 @@ The last lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -295,9 +305,11 @@ def phase_main_path(torch, launches, card: str):
     log(f"  256-word request: median {wall * 1e3:.3f} ms over 10 -> "
         f"{len(words) / wall:.1f} imgs/s on {card}")
     stages = stage_times(torch, run, style, labels)
-    profile = traced_request(torch, run, style, labels, wall * 1e3)
+    kernel_ms, idle, launches = traced(
+        torch, lambda: run(style, labels), 3, wall * 1e3, "request")
     return {"imgs_per_s": len(words) / wall, "request_ms": wall * 1e3,
-            "stages_ms": stages, **profile}
+            "stages_ms": stages, "kernel_ms": kernel_ms, "idle_share": idle,
+            "launches_per_request": launches}
 
 
 def stage_times(torch, run, style, labels):
@@ -327,35 +339,36 @@ def stage_times(torch, run, style, labels):
     return stages
 
 
-def traced_request(torch, run, style, labels, request_ms: float):
-    """Kernel time per request from ``torch.profiler`` over 3 requests,
-    the device's idle share against the unprofiled median request time
-    (the profiler's own host cost would count as idle otherwise), the
-    launch count and the kernels that take the most device time."""
+def traced(torch, fn, reps: int, unprofiled_ms: float, what: str):
+    """Kernel time per call of ``fn`` from ``torch.profiler`` over ``reps``
+    calls, the device's idle share against the unprofiled median (the
+    profiler's own host cost would count as idle otherwise), the launch
+    count and the kernels that take the most device time.  Profiler ranges
+    on the device timeline (``Optimizer.step``) are not kernels and are
+    left out."""
     from torch.profiler import ProfilerActivity, profile
 
-    reps = 3
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            run(style, labels)
+            fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise AssertionError("torch.profiler recorded no device time")
     kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
     launches = sum(e.count for e in kernels) / reps
-    idle = 1 - kernel_ms / request_ms
-    log(f"  traced: kernel time {kernel_ms:.3f} ms a request, idle share "
-        f"{idle:.3f} of the unprofiled {request_ms:.3f} ms, "
+    idle = 1 - kernel_ms / unprofiled_ms
+    log(f"  traced: kernel time {kernel_ms:.3f} ms a {what}, idle share "
+        f"{idle:.3f} of the unprofiled {unprofiled_ms:.3f} ms, "
         f"{launches:.0f} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3 / reps:9.3f} ms "
             f"{e.count // reps:5d}x  {e.key[:100]}")
-    return {"kernel_ms": kernel_ms, "idle_share": idle,
-            "launches_per_request": launches}
+    return kernel_ms, idle, launches
 
 
 def phase_kernel_times(torch, F, peaks):
@@ -442,6 +455,257 @@ def phase_kernel_times(torch, F, peaks):
     return out
 
 
+def random_batch(torch, cfg, b: int, gen, device):
+    """A train batch from ``gen``: a normal style stack, writer ids, labels
+    GO + 1..max_chars chars + END + PAD."""
+    t = cfg.output_max_len
+    ids = torch.randint(3, cfg.vocab_size, (3, b, t), generator=gen,
+                        device=device)
+    n = torch.randint(1, cfg.max_chars + 1, (3, b, 1), generator=gen,
+                      device=device)
+    pos = torch.arange(t, device=device)
+    ids = torch.where(pos == n + 1, 1, torch.where(pos > n + 1, 2, ids))
+    ids[..., 0] = 0
+    return {"style_imgs": torch.randn(b, cfg.img_height, cfg.img_width,
+                                      cfg.style_stack, generator=gen,
+                                      device=device),
+            "label_ch0": ids[0], "label_xt": ids[1], "label_xt_swap": ids[2],
+            "writer_ids": torch.randint(0, cfg.num_writers, (b,),
+                                        generator=gen, device=device)}
+
+
+def snapshot(torch, state):
+    from affganwriting_torch.train.state import PLAYERS
+
+    return {n: {k: v.detach().float().cpu().clone() for k, v in
+                getattr(state, n).model.state_dict().items()}
+            for n in PLAYERS}
+
+
+def phase_train_reference(torch):
+    """One merged step of the port on the card and on the CPU from the
+    same weights and batch: losses, fakes, every player's delta, G's and
+    R's new running statistics, held to the limits the CPU tests hold the
+    port to against the JAX package (``train/parity.py``)."""
+    from affganwriting_torch.core.config import default_config
+    from affganwriting_torch.train import parity
+    from affganwriting_torch.train.state import PLAYERS, init_state
+    from affganwriting_torch.train.step import make_phased_train_step
+
+    cfg = default_config().replace(**parity.STEP_CONFIG)
+    cpu = init_state(cfg, device="cpu", seed=SEED, rec_dropout=0.0)
+    before = snapshot(torch, cpu)
+    card = init_state(cfg, seed=SEED, rec_dropout=0.0, weights={
+        n: getattr(cpu, n).model.state_dict() for n in PLAYERS})
+    batch = {k: v.numpy() for k, v in random_batch(
+        torch, cfg, parity.STEP_BATCH, torch.Generator().manual_seed(SEED),
+        "cpu").items()}
+    outs = {}
+    for dev, state in (("cpu", cpu), ("cuda", card)):
+        state, metrics, extras = make_phased_train_step(
+            cfg, merge_dg=True, device=dev)(
+            state, batch, torch.Generator(device=dev).manual_seed(SEED))
+        outs[dev] = (snapshot(torch, state),
+                     {k: float(v) for k, v in metrics.items()},
+                     {k: v.float().cpu() for k, v in extras.items()})
+    (want, wm, we), (got, gm, ge) = outs["cpu"], outs["cuda"]
+    problems = []
+    for k, w in wm.items():
+        if not abs(gm[k] - w) <= parity.LOSS_TOL * max(1.0, abs(w)):
+            problems.append(f"metric {k}: card {gm[k]}, CPU {w}")
+    xerr = float((ge["xg"] - we["xg"]).abs().max())
+    if not xerr <= parity.XG_TOL:
+        problems.append(f"xg max|err| {xerr}")
+    if not torch.equal(ge["rec_logits_tr"].argmax(-1),
+                       we["rec_logits_tr"].argmax(-1)):
+        problems.append("R's greedy ids on the real words differ")
+    errs = {"xg": xerr}
+    for n in PLAYERS:
+        l2, per_leaf = parity.delta_errors(got[n], want[n], before[n])
+        worst = max(per_leaf.values())
+        errs[f"{n}_delta_l2"], errs[f"{n}_delta_leaf"] = l2, worst
+        if not parity.delta_ok(n, l2, per_leaf):
+            problems.append(f"{n} delta: L2 {l2:.3g}, leaf {worst:.3g} "
+                            f"(limits {parity.DELTA_TOL[n]})")
+        if n in ("gen", "rec"):
+            serr = max(float((got[n][k] - want[n][k]).abs().max()
+                             / max(1.0, float(want[n][k].abs().max())))
+                       for k in want[n] if parity.is_stat(k))
+            errs[f"{n}_stats"] = serr
+            if not serr <= parity.STATS_TOL:
+                problems.append(f"{n} running stats max|err| {serr}")
+    log("  card vs CPU, one merged step: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items()))
+    log("  losses card/CPU: " + ", ".join(
+        f"{k} {gm[k]:.6g}/{wm[k]:.6g}" for k in wm))
+    if problems:
+        raise AssertionError("train step on the card disagrees with the "
+                             "CPU: " + "; ".join(problems))
+    return errs
+
+
+def phase_train(torch, card: str):
+    """The merged train step at full width: default_config (resnet50 G,
+    D and C at 6 layers, R hidden 512, bf16 on f32 parameters, Adam), batch
+    8, random weights and batch from the seed; 3 warm-up and 10 timed
+    steps, then one eval step, one 4-phase step and the merged step at
+    batch 64."""
+    from affganwriting_torch.core.config import default_config
+    from affganwriting_torch.ops.in_relu_cuda import in_relu
+    from affganwriting_torch.ops.phase_head_cuda import phase_head
+    from affganwriting_torch.train.eval_step import make_eval_step
+    from affganwriting_torch.train.parity import is_stat
+    from affganwriting_torch.train.state import (
+        PLAYERS,
+        init_state,
+        param_count,
+    )
+    from affganwriting_torch.train.step import make_phased_train_step
+
+    def counts():
+        return (in_relu.launches, phase_head.launches_wgmma,
+                phase_head.launches)
+
+    cfg = default_config()
+    b = cfg.batch_size
+    t0 = time.perf_counter()
+    state = init_state(cfg, seed=SEED)
+    log(f"  state built in {time.perf_counter() - t0:.1f} s; parameters "
+        f"{param_count(state)}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = random_batch(torch, cfg, b, gen, "cuda")
+    step = make_phased_train_step(cfg, merge_dg=True)
+    before = snapshot(torch, state)
+    rec_stats = {}
+    events = {}
+
+    def on_phase(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[name] = ev
+        if name == "rec":
+            rec_stats.update({k: v.clone() for k, v in
+                              state.rec.model.state_dict().items()
+                              if is_stat(k)})
+
+    in_relu.launches = phase_head.launches_wgmma = phase_head.launches = 0
+    walls, phase_ms, losses = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(13):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, metrics, extras = step(state, batch, gen, on_phase)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        phase_ms.append({
+            "R": start.elapsed_time(events["rec"]),
+            "C": events["rec"].elapsed_time(events["cla"]),
+            "D+G": events["cla"].elapsed_time(events["dis_gen"])})
+        moved = [k for k, v in state.rec.model.state_dict().items()
+                 if is_stat(k) and not torch.equal(v, rec_stats[k])]
+        if moved:
+            raise AssertionError(f"R's running stats moved in the G phase: "
+                                 f"{moved[:3]}")
+    train_counts = counts()
+    peak = torch.cuda.max_memory_allocated()
+    bad = [(i, k, v) for i, m in enumerate(losses) for k, v in m.items()
+           if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite losses: {bad[:5]}")
+    if train_counts != (0, 0, 0):
+        raise AssertionError(f"a train step launched a forward-only kernel: "
+                             f"{train_counts}")
+    if tuple(extras["xg"].shape) != (b, cfg.img_height, cfg.img_width, 1):
+        raise AssertionError(f"bad xg shape {tuple(extras['xg'].shape)}")
+    after = snapshot(torch, state)
+    for n in PLAYERS:
+        params = [k for k in before[n] if not is_stat(k)]
+        if not any(not torch.equal(before[n][k], after[n][k])
+                   for k in params):
+            raise AssertionError(f"{n}'s parameters did not move")
+        stats = [k for k in before[n] if is_stat(k)]
+        if n in ("gen", "rec") and not all(
+                not torch.equal(before[n][k], after[n][k]) for k in stats):
+            raise AssertionError(f"{n}'s running stats did not all move")
+    timed = walls[3:]
+    step_ms = statistics.median(timed) * 1e3
+    phases = {k: statistics.median(p[k] for p in phase_ms[3:])
+              for k in ("R", "C", "D+G")}
+    log(f"  13 steps, losses finite; all four players moved; G's and R's "
+        f"running stats moved, R's not in the G phase; kernel launches in "
+        f"13 train steps: {train_counts}")
+    log(f"  step 0 losses {losses[0]}")
+    log(f"  step 12 losses {losses[-1]}")
+    log(f"  merged step, batch {b}: median {step_ms:.3f} ms over 10 (min "
+        f"{min(timed) * 1e3:.3f}, max {max(timed) * 1e3:.3f}) -> "
+        f"{b / (step_ms / 1e3):.1f} words/s on {card}")
+    log("  phase device ms (CUDA events, median of 10): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in phases.items()))
+    log(f"  peak memory {peak / 2**30:.3f} GiB")
+    kernel_ms, idle, launches = traced(
+        torch, lambda: step(state, batch, gen), 1, step_ms, "step")
+
+    eval_step = make_eval_step(cfg)
+    in_relu.launches = phase_head.launches_wgmma = phase_head.launches = 0
+    em, preds, images = eval_step(state, {k: v for k, v in batch.items()
+                                          if k != "label_ch0"})
+    torch.cuda.synchronize()
+    eval_counts = counts()
+    log(f"  eval step: losses { {k: float(v) for k, v in em.items()} }, "
+        f"launches in_relu {eval_counts[0]}, phase_head wgmma "
+        f"{eval_counts[1]}, f32 {eval_counts[2]}")
+    if eval_counts != (4, 2, 0):
+        raise AssertionError("an eval step did not launch in_relu 4 times "
+                             "and phase_head twice on its wgmma route")
+    if not all(math.isfinite(float(v)) for v in em.values()):
+        raise AssertionError("non-finite eval losses")
+
+    four = make_phased_train_step(cfg, merge_dg=False)
+    four(state, batch, gen)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, m4, _ = four(state, batch, gen)
+    torch.cuda.synchronize()
+    four_ms = (time.perf_counter() - t) * 1e3
+    if not all(math.isfinite(float(v)) for v in m4.values()):
+        raise AssertionError("non-finite losses in the 4-phase step")
+    log(f"  4-phase step, batch {b}: {four_ms:.3f} ms (one timed step), "
+        f"losses finite")
+
+    big = random_batch(torch, cfg, 64, gen, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(state, big, gen)
+    walls64 = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m64, _ = step(state, big, gen)
+        torch.cuda.synchronize()
+        walls64.append(time.perf_counter() - t)
+    ms64 = statistics.median(walls64) * 1e3
+    peak64 = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(float(v)) for v in m64.values()):
+        raise AssertionError("non-finite losses at batch 64")
+    log(f"  merged step, batch 64: median {ms64:.3f} ms over 5 (min "
+        f"{min(walls64) * 1e3:.3f}, max {max(walls64) * 1e3:.3f}) -> "
+        f"{64 / (ms64 / 1e3):.1f} words/s; peak memory "
+        f"{peak64 / 2**30:.3f} GiB")
+    return {"step_ms": step_ms, "step_ms_min": min(timed) * 1e3,
+            "step_ms_max": max(timed) * 1e3,
+            "words_per_s": b / (step_ms / 1e3), "phase_ms": phases,
+            "peak_gib": peak / 2**30, "four_phase_ms": four_ms,
+            "batch64_ms": ms64, "batch64_words_per_s": 64 / (ms64 / 1e3),
+            "batch64_peak_gib": peak64 / 2**30,
+            "launches_13_train_steps": list(train_counts),
+            "launches_eval_step": list(eval_counts),
+            "step_kernel_ms": kernel_ms, "step_idle_share": idle,
+            "step_launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -506,7 +770,18 @@ def main() -> int:
                        if kk not in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
         })
-    log(json.dumps({"main_path": main_path, "build_s": build_s}))
+    log("[6] train: the merged step on the card vs on the CPU, small fp32 "
+        "config")
+    train_ref = phase_train_reference(torch)
+    log("[6] train: full width (default_config, bf16, Adam, batch 8)")
+    train = phase_train(torch, smi)
+    # counts are (in_relu, phase_head wgmma route, phase_head f32 route)
+    for k, routes in (("in_relu", (0,)), ("phase_head", (1, 2))):
+        kernels[[r["name"] for r in kernels].index(k)]["detail"].update({
+            key: sum(train[key][i] for i in routes)
+            for key in ("launches_13_train_steps", "launches_eval_step")})
+    log(json.dumps({"main_path": main_path, "train_reference": train_ref,
+                    "train": train, "build_s": build_s}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

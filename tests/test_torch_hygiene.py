@@ -45,13 +45,39 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
         make_generate_and_read_fn,
         make_generate_fn,
     )
+    from affganwriting_torch.train.eval_step import make_eval_step
+    from affganwriting_torch.train.state import init_state
+    from affganwriting_torch.train.step import (
+        make_phased_train_step,
+        make_train_step,
+    )
     from test_torch_support import small_torch_config
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     for fn in (build_models, build_generator, build_recognizer,
-               make_generate_fn, make_generate_and_read_fn):
+               make_generate_fn, make_generate_and_read_fn, init_state,
+               make_phased_train_step, make_train_step, make_eval_step):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn(small_torch_config())
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn(small_torch_config(), device="cuda")
+
+
+def test_kernel_wrappers_refuse_an_input_that_requires_grad():
+    """The kernels are forward-only: with grad mode on, a CUDA input that
+    requires grad raises instead of returning an output without a
+    ``grad_fn``.  The wrappers take their plain versions on the CPU before
+    reaching the guard, so the guard they call is tested here."""
+    from affganwriting_torch.ops.cuda_build import refuse_autograd
+
+    x = torch.zeros(2, 8, requires_grad=True)
+    for what in ("in_relu", "phase_head"):
+        with pytest.raises(RuntimeError, match=f"{what}: the kernel is "
+                           "forward-only"):
+            refuse_autograd(what, torch.zeros(3), x)
+    with torch.no_grad():
+        refuse_autograd("in_relu", x)
+    with torch.inference_mode():
+        refuse_autograd("phase_head", x)
+    refuse_autograd("in_relu", x.detach())

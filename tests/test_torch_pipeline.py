@@ -101,9 +101,9 @@ def test_from_flax_accounts_for_every_leaf(variables):
     n_leaves = len(jax.tree.leaves(gen_np))
     # every flax leaf lands in the port; BiGRU/GRU cells merge 6 gates
     assert len(gen_sd) == n_leaves
-    assert "enc.rnn.gru.weight_ih_l1_reverse" in rec_sd
+    assert "enc.rnn.gru1.weight_ih_l0_reverse" in rec_sd
     np.testing.assert_array_equal(
-        rec_sd["enc.rnn.gru.bias_hh_l0"][:128].numpy(), 0)
+        rec_sd["enc.rnn.gru0.bias_hh_l0"][:128].numpy(), 0)
 
     extra = jax.tree.map(lambda x: x, gen_np)
     extra["params"]["dec"]["head"]["stray"] = np.zeros(1, np.float32)

@@ -9,6 +9,8 @@ biases and unit statistics.  Inputs are numpy arrays handed to both sides.
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import numpy as np
 import torch
@@ -22,14 +24,20 @@ SMALL = dict(compute_dtype="float32", img_height=32, img_width=104,
              text_embed_dim=16, rec_hidden=64, rec_embed=16)
 
 
-def small_jax_config():
-    return default_config().replace(**SMALL)
+# the train step's players at that size: D and C at 5 layers end at 2x7
+# on 32x104, as at 6 layers on 64x216 (at 6 they would reach 1x4, where
+# torch's reflect pad raises on the 1-pixel height and jnp's repeats)
+TRAIN_SMALL = dict(SMALL, dis_layers=5, num_writers=8)
 
 
-def small_torch_config():
+def small_jax_config(**kw):
+    return default_config().replace(**{**SMALL, **kw})
+
+
+def small_torch_config(**kw):
     from affganwriting_torch.core.config import default_config as tdefault
 
-    return tdefault().replace(**SMALL)
+    return tdefault().replace(**{**SMALL, **kw})
 
 
 def _fill(path, leaf, rng):
@@ -59,6 +67,55 @@ def random_variables(module, *args, seed: int = 0, **kwargs):
         lambda p, l: np.asarray(_fill(p, l, rng), np.float32), shapes)
 
 
+def word_batch(cfg, b: int, seed: int) -> dict:
+    """A train-step batch of ``b`` words from a numpy seed: a random style
+    stack, writer ids, and labels GO + 1..max_chars chars + END + PAD."""
+    rng = np.random.default_rng(seed)
+
+    def labels():
+        ids = rng.integers(3, cfg.vocab_size, size=(b, cfg.output_max_len))
+        for i, n in enumerate(rng.integers(1, cfg.max_chars + 1, size=b)):
+            ids[i, n + 1] = 1
+            ids[i, n + 2:] = 2
+        ids[:, 0] = 0
+        return ids.astype(np.int32)
+
+    style = rng.normal(size=(b, cfg.img_height, cfg.img_width,
+                             cfg.style_stack)).astype(np.float32)
+    return {"style_imgs": style, "label_ch0": labels(), "label_xt": labels(),
+            "label_xt_swap": labels(),
+            "writer_ids": rng.integers(0, cfg.num_writers, b).astype(np.int32)}
+
+
+def jax_word_gan_state(jcfg, batch, rec_dropout: float = 0.0):
+    """A JAX ``WordGanState`` with random flax leaves (no jitted init) and
+    the models it is for, R rebuilt with ``rec_dropout``."""
+    import jax.numpy as jnp
+
+    from affganwriting_tpu.train.state import PlayerState, WordGanState
+    from affganwriting_tpu.train.state import build_models, make_optimizers
+
+    gen, dis, cla, rec = build_models(jcfg)
+    rec = rec.clone(dropout=rec_dropout)
+    style = batch["style_imgs"][:1]
+    img, labels = style[..., :1], batch["label_xt"][:1]
+    variables = {"gen": random_variables(gen, style, labels, seed=1),
+                 "dis": random_variables(dis, img, seed=2),
+                 "cla": random_variables(cla, img, seed=3),
+                 "rec": random_variables(rec, img, labels, seed=4)}
+    opts = make_optimizers(jcfg)
+
+    def player(name):
+        v = jax.tree.map(jnp.asarray, variables[name])
+        return PlayerState(v["params"], v.get("batch_stats", {}),
+                           opts[name].init(v["params"]))
+
+    names = ("gen", "dis", "cla", "rec")
+    return (WordGanState(jnp.zeros((), jnp.int32),
+                         *(player(n) for n in names)),
+            (gen, dis, cla, rec))
+
+
 def to_numpy_tree(variables):
     return jax.tree.map(np.asarray, variables)
 
@@ -79,6 +136,29 @@ def nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).numpy()
 
 
+@contextlib.contextmanager
+def port_in_f64(*modules: torch.nn.Module):
+    """The port's ``modules`` compute in f64 inside the block: parameters,
+    compute dtypes, and every ``.float()`` they take; an exact reference
+    for the f32 readings that the train tests' limits rest on."""
+    for module in modules:
+        module.double()
+        for m in module.modules():
+            for attr in ("compute_dtype", "dtype"):
+                if getattr(m, attr, None) is torch.float32:
+                    setattr(m, attr, torch.float64)
+    as_f32 = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **k: self.double()
+    torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = as_f32
+        torch.set_default_dtype(torch.float32)
+
+
 def close(got, want, tol: float, what: str = "") -> None:
+    got, want = (t.detach() if isinstance(t, torch.Tensor) else t
+                 for t in (got, want))
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=tol, atol=tol, err_msg=what)
