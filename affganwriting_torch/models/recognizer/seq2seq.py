@@ -1,7 +1,9 @@
-"""Attention seq2seq recognizer R, free-running greedy decoding.
+"""Attention seq2seq recognizer R: free-running greedy decoding and batched
+beam search.
 
-Port of ``affganwriting_tpu/models/recognizer/seq2seq.py`` (``DecoderCell``
-and ``Recognizer.__call__``/``decode`` with no teacher forcing): the JAX
+Port of ``affganwriting_tpu/models/recognizer/seq2seq.py`` (``DecoderCell``,
+``Recognizer.__call__``/``decode`` with no teacher forcing, and
+``beam_search``): the JAX
 ``nn.scan`` over ``output_max_len - 1`` steps is a Python loop here.  The
 decoder runs in f32 whatever the trunk's compute dtype, as in the JAX
 package.  In train mode (the GAN step's free-running decoding) the first
@@ -93,3 +95,50 @@ class Recognizer(nn.Module):
             logits.append(step_logits)
             attns.append(attn)
         return torch.stack(logits, dim=1), torch.stack(attns, dim=1)
+
+    def beam_search(self, img, beam_size: int = 3,
+                    eos_id: int = VOCAB.end):
+        """Batched beam search over (B * K) rows, as the JAX package's
+        ``Recognizer.beam_search``: log-softmax scores, beams 1..K-1 seeded
+        at -1e9 so the first step expands beam 0 only, and a finished beam
+        extends only with ``eos_id``, at cost 0.  Returns (tokens (B, T -
+        1), scores (B,)) of each sample's best hypothesis.  Call it in eval
+        mode (no dropout, running statistics).
+
+        The top K of each row are taken by a stable descending sort, so
+        equal scores keep the lower index first, as ``lax.top_k`` does;
+        ``torch.topk`` promises no order among ties on CUDA."""
+        k, b = beam_size, img.shape[0]
+        steps = self.output_max_len - 1
+        enc_out, hidden0 = self.enc(img)
+        v = self.dec.out.out_features
+        dev = enc_out.device
+        hidden = hidden0.repeat_interleave(k, dim=1)          # (2, BK, H)
+        enc = enc_out.repeat_interleave(k, dim=0)
+        attn = enc.new_zeros(enc.shape[:2])
+        last = torch.full((b * k,), VOCAB.go, dtype=torch.long, device=dev)
+        scores = torch.tensor([0.0] + [-1e9] * (k - 1), device=dev).repeat(b)
+        alive = torch.ones(b * k, dtype=torch.bool, device=dev)
+        seq = torch.zeros((b * k, steps), dtype=torch.long, device=dev)
+        frozen = torch.full((v,), -torch.inf, device=dev)
+        frozen[eos_id] = 0.0
+        rows = torch.arange(b, device=dev)[:, None] * k
+        for t in range(steps):
+            hidden, attn, logits = self.dec(hidden, attn, last, enc)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            logp = torch.where(alive[:, None], logp, frozen)
+            total = (scores[:, None] + logp).reshape(b, k * v)
+            top_scores, top_idx = torch.sort(total, dim=-1, descending=True,
+                                              stable=True)
+            top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+            parent = (top_idx // v + rows).reshape(-1)
+            last = (top_idx % v).reshape(-1)
+            hidden, attn = hidden[:, parent], attn[parent]
+            scores = top_scores.reshape(-1)
+            alive = alive[parent] & (last != eos_id)
+            seq = seq[parent]
+            seq[:, t] = last
+        scores = scores.reshape(b, k)
+        best = scores.argmax(dim=-1)
+        pick = torch.arange(b, device=dev)
+        return seq.reshape(b, k, steps)[pick, best], scores[pick, best]

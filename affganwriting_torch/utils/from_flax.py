@@ -19,6 +19,14 @@ caller hands the flax trees over as nested dicts of numpy arrays
 
 ``from_flax`` raises on any flax leaf it did not consume, and on any port
 parameter or buffer it did not fill or filled with the wrong shape.
+
+Optimizer state (``word_gan_from_flax(..., with_optimizers=True)``): optax
+``adam``'s ``mu``, ``nu`` and ``count`` (under ``inject_hyperparams`` for R)
+become ``torch.optim.Adam``'s ``exp_avg``, ``exp_avg_sq`` and ``step``.  The
+moments are parameter-shaped trees and take the parameters' layout maps,
+the GRU stacking included, so the recurrent r and z biases that torch has
+and flax lacks get zero moments.  R's injected ``learning_rate`` becomes
+its param group's ``lr``.
 """
 
 from __future__ import annotations
@@ -32,7 +40,11 @@ import torch
 from affganwriting_torch.core.config import WordGanConfig
 from affganwriting_torch.models.generator import Generator
 from affganwriting_torch.models.recognizer.seq2seq import Recognizer
-from affganwriting_torch.train.state import PLAYERS, new_models
+from affganwriting_torch.train.state import (
+    PLAYERS,
+    make_optimizers,
+    new_models,
+)
 
 _GRU_GATES = frozenset(("ir", "iz", "in", "hr", "hz", "hn"))
 _KERNEL_PERM = {4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}
@@ -104,12 +116,18 @@ def _leaves(tree: Mapping, path: tuple = ()) -> set:
     return found
 
 
-def convert_module(variables: Mapping, module: torch.nn.Module) -> dict:
+def convert_module(variables: Mapping, module: torch.nn.Module, *,
+                   params_only: bool = False) -> dict:
     """Flax ``variables`` of one module -> a state dict for the port's
-    counterpart ``module`` (which may live on the meta device).  Raises on
-    any flax leaf not consumed and on any of ``module``'s parameters or
-    buffers not filled, or filled with the wrong shape."""
-    expected = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    counterpart ``module`` (which may live on the meta device); with
+    ``params_only``, {parameter name: tensor} for a parameter-shaped tree
+    under ``variables["params"]`` (an optimizer moment).  Raises on any
+    flax leaf not consumed and on any of ``module``'s parameters (and,
+    unless ``params_only``, buffers) not filled, or filled with the wrong
+    shape."""
+    tensors = (module.named_parameters() if params_only
+               else module.state_dict().items())
+    expected = {k: tuple(v.shape) for k, v in tensors}
     out: dict[str, torch.Tensor] = {}
     consumed: set = set()
     for collection in ("params", "batch_stats"):
@@ -136,14 +154,59 @@ def convert_module(variables: Mapping, module: torch.nn.Module) -> dict:
     return out
 
 
-def word_gan_from_flax(jax_state, config: WordGanConfig) -> dict:
+def _find(node, pred):
+    """The first node of an optax state (nested tuples, named tuples and
+    dicts) for which ``pred`` holds, depth first; None if none does."""
+    if pred(node):
+        return node
+    children = node.values() if isinstance(node, Mapping) else (
+        node if isinstance(node, tuple) else ())
+    for child in children:
+        found = _find(child, pred)
+        if found is not None:
+            return found
+    return None
+
+
+def optimizer_from_flax(opt_state, module: torch.nn.Module,
+                        opt: torch.optim.Optimizer) -> dict:
+    """One player's optax state -> a state dict for ``opt``, the port's
+    optimizer over ``module``'s parameters (``make_optimizers``; it may
+    live on the meta device): Adam's moments and step where the optax state
+    has them (SGD has none), and an injected ``learning_rate`` as the
+    group's ``lr``."""
+    out = opt.state_dict()
+    adam = _find(opt_state, lambda n: hasattr(n, "mu") and hasattr(n, "nu"))
+    if adam is not None:
+        mu, nu = (convert_module({"params": tree}, module, params_only=True)
+                  for tree in (adam.mu, adam.nu))
+        step = float(np.asarray(adam.count))
+        out["state"] = {
+            i: {"step": torch.tensor(step), "exp_avg": mu[name],
+                "exp_avg_sq": nu[name]}
+            for i, (name, _) in enumerate(module.named_parameters())}
+    hyper = _find(opt_state, lambda n: isinstance(
+        getattr(n, "hyperparams", None), Mapping))
+    if hyper is not None:
+        for group in out["param_groups"]:
+            group["lr"] = float(np.asarray(hyper.hyperparams["learning_rate"]))
+    return out
+
+
+def word_gan_from_flax(jax_state, config: WordGanConfig, *,
+                       with_optimizers: bool = False) -> dict:
     """A JAX ``WordGanState`` with numpy leaves (``jax.tree.map(np.asarray,
     state)``) -> {"gen", "dis", "cla", "rec"} state dicts for
     ``train/state.py:init_state(weights=...)``: every player's params and
-    batch statistics, with ``convert_module``'s leaf accounting.  Optimizer
-    moments are not carried."""
+    batch statistics, with ``convert_module``'s leaf accounting.
+
+    With ``with_optimizers``, the whole state as a checkpoint dict of
+    ``core/checkpoint.py`` instead: ``{"step", name: {"model": state dict,
+    "opt": optimizer state dict or None}}``, for ``load_payload`` into an
+    ``init_state(config, ...)``."""
     with torch.device("meta"):
         models = new_models(config)
+        opts = make_optimizers(config, models)
     out = {}
     for name in PLAYERS:
         player = getattr(jax_state, name)
@@ -151,6 +214,12 @@ def word_gan_from_flax(jax_state, config: WordGanConfig) -> dict:
         if player.stats:
             variables["batch_stats"] = player.stats
         out[name] = convert_module(variables, models[name])
+        if with_optimizers:
+            out[name] = {"model": out[name], "opt": None
+                         if opts[name] is None else optimizer_from_flax(
+                             player.opt_state, models[name], opts[name])}
+    if with_optimizers:
+        out["step"] = int(np.asarray(jax_state.step))
     return out
 
 

@@ -1,0 +1,88 @@
+"""ctypes loader of the native word-image preprocessing (``native/
+preprocess.cpp`` at the root of the checkout).
+
+The port's copy of the part of ``affganwriting_tpu/utils/native.py`` that
+``data/words.py`` uses.  Build once with
+
+    python -m affganwriting_torch.utils.native build
+
+(one ``g++`` call, OpenMP) into ``build/native/`` at the root of the
+checkout; ``preprocess_word_image`` then takes it for uint8 images and the
+numpy version otherwise.  Nothing builds at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[2]
+SRC = ROOT / "native" / "preprocess.cpp"
+SO = ROOT / "build" / "native" / "libpreprocess.so"
+
+_lib = None
+
+
+def build(verbose: bool = True) -> Path:
+    """Compile ``SRC`` into ``SO`` (written aside, then renamed into
+    place)."""
+    SO.parent.mkdir(parents=True, exist_ok=True)
+    tmp = SO.with_name(f"{SO.name}.{os.getpid()}.tmp")
+    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-fopenmp",
+           str(SRC), "-o", str(tmp)]
+    if verbose:
+        print(" ".join(cmd))
+    subprocess.run(cmd, check=True)
+    os.replace(tmp, SO)
+    return SO
+
+
+def load():
+    """The ctypes library, or None when it is not built or not loadable."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    if not SO.is_file():
+        return None
+    try:
+        lib = ctypes.CDLL(str(SO))
+    except OSError:
+        return None
+    lib.preprocess_words.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+        ctypes.c_int]
+    _lib = lib
+    return lib
+
+
+def available() -> bool:
+    return load() is not None
+
+
+def preprocess_words_native(images: np.ndarray, out_h: int = 64,
+                            out_w: int = 216) -> np.ndarray:
+    """(N, H, W) uint8 -> (N, out_h, out_w) float32 in [-1, 1]."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError("the native library is not built: run python -m "
+                           "affganwriting_torch.utils.native build")
+    images = np.ascontiguousarray(images, np.uint8)
+    n, h, w = images.shape
+    out = np.empty((n, out_h, out_w), np.float32)
+    lib.preprocess_words(
+        images.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n, h, w,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), out_h, out_w)
+    return out
+
+
+if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "build":
+        print("built:", build())
+    else:
+        print("available:", available())

@@ -36,7 +36,18 @@ non-zero before printing any result.  Phases, each fatal on failure:
    the G phase, no kernel launched by a train step; step time, words/s,
    per-phase device time, peak memory and one traced step; one eval step,
    which must launch ``in_relu`` 4 times and ``phase_head`` twice; one
-   4-phase step; the merged step at batch 64.
+   4-phase step; the merged step at batch 64;
+7. trainer runtime at ``default_config()``: ``cli/train_word`` for 2 epochs
+   of 16 writers (JSONL lines finite, ``latest``, ``step_00000001`` and
+   ``best`` written, ``in_relu`` 4 and ``phase_head`` 2 launches per eval
+   batch, none in the train steps), a resume on the same logdir that must
+   be bit-equal to the last save (Adam moments and R's rate included) and
+   train one more epoch, ``cli/generate_word`` from ``best`` greedily as a
+   warm-up, then with beams of 3 and 1 and greedily (17 files each, 2 + 1
+   launches a call, the width-1 beam reading as the greedy path),
+   ``cli/inspect_ckpt``; epoch, eval, checkpoint save and load times and
+   sizes, a batch's upload, the CER pass and the data stream alone,
+   generate_word words/s.
 
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
@@ -706,6 +717,292 @@ def phase_train(torch, card: str):
             "step_launches": launches}
 
 
+class _Timed:
+    """Class-level wrappers that time every ``CheckpointManager`` save and
+    load, and count the kernel launches and seconds of each trainer epoch
+    and evaluation, for phase 7; ``restore()`` puts the methods back."""
+
+    def __init__(self, counts):
+        from affganwriting_torch.core.checkpoint import CheckpointManager
+        from affganwriting_torch.train.loop import WordGanTrainer
+
+        self.saves, self.loads, self.epochs, self.evals = [], [], [], []
+        self._orig = []
+
+        def wrap(cls, name, record, what):
+            orig = getattr(cls, name)
+
+            def timed(obj, *a, **k):
+                import torch
+
+                before = counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = orig(obj, *a, **k)
+                torch.cuda.synchronize()
+                record.append(what(obj, a, out, time.perf_counter() - t,
+                                   tuple(x - y for x, y in
+                                         zip(counts(), before))))
+                return out
+
+            self._orig.append((cls, name, orig))
+            setattr(cls, name, timed)
+
+        import os
+
+        wrap(CheckpointManager, "_save_swap", self.saves,
+             lambda o, a, out, s, n: (os.path.basename(a[0]), s,
+                                      os.path.getsize(a[0])))
+        wrap(CheckpointManager, "load", self.loads,
+             lambda o, a, out, s, n: (a[0], s))
+        wrap(WordGanTrainer, "train_epoch", self.epochs,
+             lambda o, a, out, s, n: (s, n, out))
+        wrap(WordGanTrainer, "evaluate", self.evals,
+             lambda o, a, out, s, n: (
+                 s, n, len(o.test_data) // o.config.batch_size))
+
+    def restore(self):
+        for cls, name, orig in self._orig:
+            setattr(cls, name, orig)
+
+
+def phase_trainer_runtime(torch, card: str):
+    """The word trainer runtime at full width (default_config: resnet50,
+    bf16 on f32 parameters, Adam, merged D+G, batch 8, synthetic images
+    from the in-repo GT), in a temporary logdir under ``build/``:
+
+    (a) ``cli/train_word`` for 2 epochs of 16 writers (2 train steps and 2
+        eval batches an epoch), evaluating and saving every epoch;
+    (b) a trainer built on the same logdir resumes at epoch 2 with every
+        parameter, statistic and optimizer field of the last save, R's
+        learning rate included, and trains one more epoch;
+    (c) ``cli/generate_word`` from ``best``: the word ladder for one writer,
+        greedily as a warm-up, then with a beam of 3, of 1 (which must read
+        as the greedy path up to the first END) and greedily;
+    (d) ``cli/inspect_ckpt`` prints ``param_count``'s counts."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from affganwriting_torch.cli import generate_word, inspect_ckpt, train_word
+    from affganwriting_torch.core.checkpoint import state_payload
+    from affganwriting_torch.core.config import VOCAB
+    from affganwriting_torch.ops.in_relu_cuda import in_relu
+    from affganwriting_torch.ops.phase_head_cuda import phase_head
+    from affganwriting_torch.train.state import param_count, set_rec_lr
+
+    def counts():
+        return (in_relu.launches, phase_head.launches_wgmma,
+                phase_head.launches)
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase7_", dir=root)
+    logdir = os.path.join(tmp, "run")
+    argv = ["--epochs", "2", "--max-writers", "16", "--eval-every", "1",
+            "--save-every", "1", "--restart-rss-gb", "0", "--logdir", logdir]
+    timed = _Timed(counts)
+    out = {}
+    try:
+        in_relu.launches = phase_head.launches_wgmma = phase_head.launches = 0
+        t0 = time.perf_counter()
+        trainer = train_word.main(argv)
+        torch.cuda.synchronize()
+        out["train_2_epochs_s"] = time.perf_counter() - t0
+        lines = [json.loads(s) for s in open(f"{logdir}/metrics.jsonl")]
+        if [r["group"] for r in lines] != ["train", "eval"] * 2:
+            raise AssertionError(
+                f"metrics groups {[r['group'] for r in lines]}")
+        for r in lines:
+            vals = {k: v for k, v in r.items() if k != "group"}
+            if not all(math.isfinite(v) for v in vals.values()) or min(
+                    v for k, v in vals.items() if k.startswith("cer")) < 0:
+                raise AssertionError(f"bad metrics line {r}")
+        ck = os.listdir(f"{logdir}/ckpt")
+        if not {"latest", "step_00000001", "best"} <= set(ck):
+            raise AssertionError(f"checkpoints {sorted(ck)}")
+        if [(cnt, n) for _, cnt, n in timed.evals] != [((8, 4, 0), 2)] * 2:
+            raise AssertionError(f"eval launches and batches {timed.evals}: "
+                                 "not in_relu 4 and phase_head 2 a batch")
+        if any(cnt != (0, 0, 0) for _, cnt, _ in timed.epochs):
+            raise AssertionError(f"a train epoch launched a forward-only "
+                                 f"kernel: {[c for _, c, _ in timed.epochs]}")
+        for (s, cnt, m), (es, ecnt, nb) in zip(timed.epochs, timed.evals):
+            log(f"  epoch: {s:.3f} s wall ({m['epoch_seconds']:.3f} s in "
+                f"train_epoch's own clock, {m['steps_per_sec']:.3f} steps/s)"
+                f", launches {cnt}; eval {es:.3f} s for {nb} batches "
+                f"({es / nb:.3f} s a batch), launches {ecnt}; cer_tr "
+                f"{m['cer_tr']:.2f}, l_total {m['l_total']:.4f}")
+        out["epochs"] = [{"wall_s": s, "epoch_seconds": m["epoch_seconds"],
+                          "steps_per_sec": m["steps_per_sec"]}
+                         for s, _, m in timed.epochs]
+        out["eval_s_per_batch"] = [s / nb for s, _, nb in timed.evals]
+        _, ecnt, nb = timed.evals[-1]
+        out["eval_launches_per_batch"] = [c // nb for c in ecnt]
+
+        # the last save of (a), with R's rate moved as a plateau step would
+        set_rec_lr(trainer.state, trainer.config.lr_rec * 0.1)
+        trainer.ckpt.save_latest(trainer.state, trainer.config)
+        saved = state_payload(trainer.state)
+        cfg = trainer.config
+        for name, s, size in timed.saves:
+            log(f"  saved {name}: {s:.3f} s, {size / 2**30:.3f} GiB")
+        out["saves"] = [{"name": n, "s": s, "bytes": b}
+                        for n, s, b in timed.saves]
+
+        trainer_b, _ = train_word.build_trainer(["--epochs", "3"] + argv[2:])
+        if trainer_b.start_epoch != 2:
+            raise AssertionError(f"resumed at epoch {trainer_b.start_epoch}")
+        got = state_payload(trainer_b.state)
+        fields = _compare_payloads(torch, got, saved)
+        lr = got["rec"]["opt"]["param_groups"][0]["lr"]
+        if lr != cfg.lr_rec * 0.1:
+            raise AssertionError(f"R's lr {lr} not restored")
+        log(f"  resumed at epoch 2: {fields} tensors and optimizer fields "
+            f"bit-equal to the last save, R's lr {lr:g}")
+        del trainer, saved, got
+        trainer_b.fit(3)
+        last = [json.loads(s) for s in open(f"{logdir}/metrics.jsonl")][-2:]
+        if [r["group"] for r in last] != ["train", "eval"] or not all(
+                math.isfinite(v) for r in last for k, v in r.items()
+                if k.startswith("l_")):
+            raise AssertionError(f"resumed epoch: {last}")
+        log(f"  resumed epoch 2: l_total {last[0]['l_total']:.4f}, cer_te "
+            f"{last[1]['cer_te']:.2f}")
+        counts_b = param_count(trainer_b.state)
+        out.update(_host_parts(torch, trainer_b))
+        for what, data in (("train", trainer_b.train_data),
+                           ("held-out", trainer_b.test_data)):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in data.batches(epoch=9))
+            s = time.perf_counter() - t0
+            out[f"{what}_batches_s"] = s
+            log(f"  data alone: {n} {what} batches of epoch 9 built in "
+                f"{s:.3f} s ({s / n:.3f} s a batch, synthetic renders "
+                "cached as the run left them)")
+        del trainer_b
+        torch.cuda.empty_cache()
+
+        gen_out, reads = {}, {}
+        # the first run renders the writer's style images and meets the
+        # batch's shapes for the first time: a greedy warm-up takes that
+        for tag, beam in (("warm-up", 0), (3, 3), (1, 1), (0, 0)):
+            before = counts()
+            t0 = time.perf_counter()
+            res = generate_word.main([
+                "--ckpt", f"{logdir}/ckpt", "--ckpt-name", "best",
+                "--corpus", "ladder", "--max-writers", "1", "--beam",
+                str(beam), "--out", os.path.join(tmp, f"gen{tag}")])
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            launched = tuple(a - b for a, b in zip(counts(), before))
+            files = os.listdir(os.path.join(tmp, f"gen{tag}"))
+            ids = res["pred_ids"]
+            if len(files) != 17 or len(res["files"]) != 17 or not all(
+                    f.endswith((".png", ".png.npy")) for f in files):
+                raise AssertionError(f"generate_word wrote {len(files)} files")
+            if ids.shape != (17, cfg.output_max_len - 1) or ids.min() < 0 \
+                    or ids.max() >= VOCAB.size:
+                raise AssertionError(f"beam ids {ids.shape} in "
+                                     f"[{ids.min()}, {ids.max()}]")
+            if launched != (2, 1, 0):
+                raise AssertionError(f"a generate_word call launched "
+                                     f"{launched}, not 2 + 1")
+            reads[tag] = [_until_end(r, VOCAB.end) for r in ids.tolist()]
+            loop = res["seconds"]
+            key = "warm_up" if tag == "warm-up" else f"beam{beam}"
+            gen_out[key] = {"s": s, "words_per_s": 17 / s, "loop_s": loop,
+                            "loop_words_per_s": 17 / loop,
+                            "launches": list(launched)}
+            log(f"  generate_word --beam {beam}"
+                f"{' (warm-up)' if tag == 'warm-up' else ''}: 17 files in "
+                f"{s:.3f} s ({17 / s:.2f} words/s, checkpoint load and "
+                f"model build included; the writer loop {loop:.3f} s, "
+                f"{17 / loop:.1f} words/s), launches {launched}; first read "
+                f"{VOCAB.decode(ids[0])!r}")
+        if reads[1] != reads[0]:
+            raise AssertionError("a width-1 beam read differently from the "
+                                 "greedy path")
+        out["generate_word"] = gen_out
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            shown = inspect_ckpt.main([f"{logdir}/ckpt"])
+        if shown["param_counts"] != counts_b or not all(
+                f'"{n}": {c}' in buf.getvalue() for n, c in counts_b.items()):
+            raise AssertionError(f"inspect_ckpt printed {shown}, "
+                                 f"param_count {counts_b}")
+        log(f"  inspect_ckpt: step {shown['step']}, parameters "
+            f"{shown['param_counts']}")
+        for path, s in timed.loads:
+            log(f"  loaded {os.path.basename(path)}: {s:.3f} s")
+        out["loads"] = [{"name": os.path.basename(p), "s": s}
+                        for p, s in timed.loads]
+        torch.cuda.empty_cache()
+    finally:
+        timed.restore()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 7 on {card}")
+    return out
+
+
+def _host_parts(torch, trainer) -> dict:
+    """Two host-side parts of a trainer epoch, timed alone on the card: one
+    batch's upload (``to_device_batch`` of the numpy batch, median of 5)
+    and the post-epoch CER pass of a 2-step epoch (6 ``cer_counts`` calls
+    on (B, T - 1) ids against (B, T) labels)."""
+    from affganwriting_torch.eval.cer import CERAccumulator
+    from affganwriting_torch.train.step import to_device_batch
+
+    batch = next(trainer.train_data.batches(epoch=8))
+    dev = trainer.device
+    ups = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        to_device_batch(batch, dev)
+        torch.cuda.synchronize()
+        ups.append(time.perf_counter() - t)
+    ids = torch.randint(0, 55, batch["label_xt"][:, 1:].shape, device=dev)
+    gt = torch.as_tensor(batch["label_xt"], device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(6):
+        CERAccumulator().add(ids, gt)
+    torch.cuda.synchronize()
+    cer_s = time.perf_counter() - t
+    up = statistics.median(ups)
+    log(f"  host parts: a batch's upload {up * 1e3:.3f} ms (median of 5), "
+        f"the CER pass of a 2-step epoch {cer_s * 1e3:.3f} ms")
+    return {"upload_ms": up * 1e3, "cer_pass_ms": cer_s * 1e3}
+
+
+def _until_end(row, end):
+    return row[: row.index(end)] if end in row else row
+
+
+def _compare_payloads(torch, got, want, where="") -> int:
+    """Bit-equality of two checkpoint dicts; returns the fields compared."""
+    if isinstance(want, torch.Tensor):
+        if not (got.dtype == want.dtype and torch.equal(got, want)):
+            raise AssertionError(f"{where} differs after the resume")
+        return 1
+    if isinstance(want, dict):
+        if got.keys() != want.keys():
+            raise AssertionError(f"{where}: keys differ after the resume")
+        return sum(_compare_payloads(torch, got[k], want[k], f"{where}.{k}")
+                   for k in want)
+    if isinstance(want, (list, tuple)):
+        return sum(_compare_payloads(torch, g, w, f"{where}[{i}]")
+                   for i, (g, w) in enumerate(zip(got, want)))
+    if got != want:
+        raise AssertionError(f"{where}: {got} != {want} after the resume")
+    return 1
+
+
 def main() -> int:
     import torch
 
@@ -780,8 +1077,21 @@ def main() -> int:
         kernels[[r["name"] for r in kernels].index(k)]["detail"].update({
             key: sum(train[key][i] for i in routes)
             for key in ("launches_13_train_steps", "launches_eval_step")})
+    log("[7] trainer runtime: train_word 2 epochs -> resume -> "
+        "generate_word -> inspect_ckpt (default_config, bf16, batch 8)")
+    t0 = time.perf_counter()
+    runtime = phase_trainer_runtime(torch, smi)
+    runtime["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 7 took {runtime['phase_s']:.1f} s")
+    for k, key in (("in_relu", 0), ("phase_head", 1)):
+        kernels[[r["name"] for r in kernels].index(k)]["detail"].update({
+            "launches_trainer_eval_batch":
+                runtime["eval_launches_per_batch"][key],
+            "launches_generate_word_call":
+                runtime["generate_word"]["beam0"]["launches"][key]})
     log(json.dumps({"main_path": main_path, "train_reference": train_ref,
-                    "train": train, "build_s": build_s}))
+                    "train": train, "trainer_runtime": runtime,
+                    "build_s": build_s}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

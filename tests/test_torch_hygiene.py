@@ -64,6 +64,38 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
             fn(small_torch_config(), device="cuda")
 
 
+def test_trainer_and_clis_need_a_card_or_an_explicit_cpu(tmp_path,
+                                                         monkeypatch):
+    """The trainer, ``train_word``'s builder and the other CLIs raise
+    before they build or write anything."""
+    from affganwriting_torch.cli import (
+        generate_word,
+        inspect_ckpt,
+        train_word,
+    )
+    from affganwriting_torch.train.loop import WordGanTrainer
+    from test_torch_support import small_torch_config
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            WordGanTrainer(small_torch_config(), [], logdir=str(tmp_path),
+                           **kw)
+    assert not (tmp_path / "ckpt").exists()
+    monkeypatch.setattr(train_word, "default_config", small_torch_config)
+    for extra in ([], ["--device", "cuda"]):
+        for run in (
+                lambda: train_word.build_trainer(
+                    ["--logdir", str(tmp_path / "run")] + extra),
+                lambda: generate_word.main(["--out", str(tmp_path / "gen")]
+                                           + extra),
+                lambda: inspect_ckpt.main([str(tmp_path / "ck")] + extra)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                run()
+    assert not any((tmp_path / d).exists() for d in ("run", "gen", "ck"))
+
+
 def test_kernel_wrappers_refuse_an_input_that_requires_grad():
     """The kernels are forward-only: with grad mode on, a CUDA input that
     requires grad raises instead of returning an output without a

@@ -309,6 +309,34 @@ def test_recognizer_term_gradient_into_the_fakes():
     assert kept, "R's running statistics moved under frozen_stats"
 
 
+def test_r_term_gradient_gap_is_the_reference_trunk_relu_flips():
+    """Where the JAX package's gradient above leaves the port's on batch 1
+    (R's loss on that batch alone: 4.79e-3 relative L2, 6.0e-3 max abs
+    against the port in f64, jitted or not): its f32 forward through the
+    VGG trunk puts a few pre-activations that lie within ~1e-5 of 0 on the
+    other side of a ReLU, which then passes or blocks the gradient there.
+    With the JAX package's f32 ReLU masks, the port computed in f64 gives
+    the JAX package's gradient to 1e-4 (f32 noise, measured 2.7e-5); each
+    other stage of R, given the same input and cotangent, agrees to 1e-5
+    (``python tests/torch_rec_grad_stages.py`` prints both)."""
+    from torch_rec_grad_stages import jax_relu_masks, port_f64, rel
+
+    jcfg, jrec, v, fakes, labels = _rec_term_case()
+
+    def l_rec(x):
+        (logits, _), _ = jrec.apply(v, x, labels[1], train=True,
+                                    mutable=["batch_stats"])
+        return jlosses.rec_loss(logits, labels[1], jcfg.label_smoothing)
+
+    want = np.asarray(jax.jit(jax.grad(l_rec))(fakes[1]), np.float64)
+    want = want.transpose(0, 3, 1, 2)
+    plain = port_f64(jcfg, v, fakes[1], labels[1])["d_x"]
+    masked = port_f64(jcfg, v, fakes[1], labels[1],
+                      jax_relu_masks(v, fakes[1]))["d_x"]
+    assert rel(want, plain)[0] > 1e-3
+    assert rel(want, masked)[0] <= 1e-4, rel(want, masked)
+
+
 def test_losses_match():
     logits = RNG.normal(size=(4, 7, 55)).astype(np.float32) * 3
     patch = RNG.normal(size=(4, 1024)).astype(np.float32)
