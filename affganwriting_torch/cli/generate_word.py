@@ -26,6 +26,8 @@ import time
 
 import numpy as np
 
+from affganwriting_torch.models.style_encoders import available
+
 WORD_LADDER = ["three", "threw", "shrew", "shred", "sired", "sides",
                "sites", "sines", "wines", "vines", "vised", "vised",
                "fires", "hires", "hived", "haven", "seven"]
@@ -43,7 +45,7 @@ def main(argv=None):
     p.add_argument("--max-writers", type=int, default=4)
     p.add_argument("--words-per-batch", type=int, default=128)
     p.add_argument("--image-root", default=None)
-    p.add_argument("--style-encoder", default=None,
+    p.add_argument("--style-encoder", default=None, choices=available(),
                    help="default: the checkpoint's config (resnet50)")
     p.add_argument("--beam", type=int, default=0,
                    help="read the generated words with a beam search of "

@@ -8,9 +8,9 @@ the JAX CLI; ``--device cpu`` runs it on the CPU.  ``build_trainer(argv)``
 returns the trainer (resumed from ``<logdir>/ckpt/latest`` when there is
 one) and the epoch count; ``main`` fits it and returns it.
 
-Not ported yet, each refused with the ROADMAP item it waits for: ``--mesh``
-(Queue 1 item 10), ``--recognizer trocr`` and ``--trocr-*`` (item 8), style
-encoders other than resnet50 and resnet18 (item 8).
+``--style-encoder`` takes every key of ``models/style_encoders``.  Not
+ported yet, each refused with the ROADMAP item it waits for: ``--mesh``
+(Queue 1 item 10), ``--recognizer trocr`` and ``--trocr-*`` (item 8).
 """
 
 from __future__ import annotations
@@ -18,8 +18,7 @@ from __future__ import annotations
 import argparse
 
 from affganwriting_torch.core.config import default_config
-
-ENCODERS = ("resnet50", "resnet18")
+from affganwriting_torch.models.style_encoders import available
 
 
 def refuse_unported(args) -> None:
@@ -32,10 +31,6 @@ def refuse_unported(args) -> None:
             getattr(args, "trocr_ckpt", None):
         raise SystemExit("the TrOCR recognizer waits for ROADMAP Queue 1 "
                          "item 8; the port has --recognizer seq2seq")
-    if args.style_encoder not in (None, *ENCODERS):
-        raise SystemExit(f"--style-encoder {args.style_encoder}: the port has "
-                         f"{', '.join(ENCODERS)}; the other encoders wait for "
-                         "ROADMAP Queue 1 item 8")
 
 
 def build_trainer(argv=None):
@@ -44,7 +39,7 @@ def build_trainer(argv=None):
     p.add_argument("--epochs", type=int, default=5000)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--style-encoder", default="resnet50",
-                   help="resnet50 or resnet18")
+                   choices=available())
     p.add_argument("--recognizer", default="seq2seq",
                    choices=("seq2seq", "trocr"))
     p.add_argument("--trocr-preset", default=None, choices=("tiny", "base"))

@@ -1,11 +1,13 @@
 """Debug image sheets (the reference's ``write_image``,
 GAN_word/modules_tro.py:47-105).
 
-The port's copy of the word sheet of ``affganwriting_tpu/eval/sheets.py``:
+The port's copy of ``affganwriting_tpu/eval/sheets.py``.  The word sheet:
 per sample, a column of [two style rows, GT image, GT text, generated,
-predicted text, swap GT text, swap generated, swap predicted text], the
-text drawn with a built-in 5x7 bitmap font.  Without PIL a sheet is saved
-as the uint8 array ``<name>.png.npy``.
+predicted text, swap GT text, swap generated, swap predicted text].  The
+line sheet: per sample, rows of [real, reconstruction, generation] and the
+text, with the mean discriminator scores as a caption.  Text is drawn with
+a built-in 5x7 bitmap font.  Without PIL a sheet is saved as the uint8
+array ``<name>.png.npy``.
 """
 
 from __future__ import annotations
@@ -110,6 +112,44 @@ def write_sheet(
         cols.append(np.vstack(rows))
     path = os.path.join(out_dir, f"{title}.png")
     _save_png(path, np.hstack(cols))
+    return path
+
+
+def write_line_sheet(
+    out_dir: str,
+    title: str,
+    real: np.ndarray,            # (B, H, W1, 1)
+    recon: np.ndarray,           # (B, H, W2, 1) spaced-label reconstruction
+    gen: np.ndarray,             # (B, H, W3, 1) bank-style generation
+    texts: list[str] | None = None,
+    disc_scores: dict[str, float] | None = None,
+) -> str:
+    """The line trainer's periodic sheet (the reference's ``print_images``
+    grids with disc scores, hw_with_style_trainer.py:1002-1032): per
+    sample, rows of [real, recon, gen], each left-aligned in the widest,
+    plus the line text; the mean discriminator score per image kind as a
+    caption.  Returns the path it was asked for."""
+    os.makedirs(out_dir, exist_ok=True)
+    b, h = real.shape[0], real.shape[1]
+    w = max(real.shape[2], recon.shape[2], gen.shape[2])
+
+    def row(img):
+        out = np.zeros((h, w), np.uint8)
+        out[:, : img.shape[1]] = _normalize(img[:, :, 0])
+        return out
+
+    blocks = []
+    for i in range(b):
+        rows = [row(real[i]), row(recon[i]), row(gen[i])]
+        if texts is not None and i < len(texts):
+            rows.append(_text_strip(texts[i], max(16, h // 2), w))
+        blocks.append(np.vstack(rows))
+    if disc_scores:
+        caption = "  ".join(f"D {k} {v:+.3f}" for k, v in
+                            sorted(disc_scores.items()))
+        blocks.append(_text_strip(caption, max(16, h // 2), w))
+    path = os.path.join(out_dir, f"{title}.png")
+    _save_png(path, np.vstack(blocks))
     return path
 
 

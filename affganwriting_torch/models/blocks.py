@@ -8,8 +8,9 @@ here do the same on PyTorch's layouts, so the parameters stay f32 and the
 arithmetic rounds where the reference rounds.  ``BatchNorm`` follows the
 module's train/eval mode as flax's ``use_running_average=not train`` does.
 ``Conv2dBlock``, ``ActFirstResBlock`` and ``avg_pool_3x3_s2_refpad`` build
-the discriminator and writer classifier; ``ResBlock`` and ``LinearBlock``
-are not ported (nothing ported uses them).
+the discriminator and writer classifier, ``Conv2dBlock`` with instance
+norm the ``cnn`` style encoder; ``ResBlock`` and ``LinearBlock`` are not
+ported (nothing ported uses them).
 """
 
 from __future__ import annotations
@@ -20,15 +21,34 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from affganwriting_torch.ops.norms import instance_norm
+
 _PAD_MODES = {"reflect": "reflect", "replicate": "replicate",
               "zero": "constant"}
 
 
 def pad2d(x: torch.Tensor, padding: int, pad_type: str) -> torch.Tensor:
-    """Pad H and W of an NCHW tensor by ``padding`` on each side."""
+    """Pad H and W of an NCHW tensor by ``padding`` on each side.  A reflect
+    pad of a single row or column repeats it, as ``jnp.pad`` does (torch
+    refuses it)."""
     if padding == 0:
         return x
+    if pad_type == "reflect" and min(x.shape[2:]) == 1:
+        for dim, pad in ((2, (0, 0, padding, padding)),
+                         (3, (padding, padding, 0, 0))):
+            x = F.pad(x, pad, mode="reflect" if x.shape[dim] > 1
+                      else "replicate")
+        return x
     return F.pad(x, (padding,) * 4, mode=_PAD_MODES[pad_type])
+
+
+def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(..., "bilinear")`` of an NCHW tensor to ``size``,
+    in f32: half-pixel centres, and a triangle filter widened by the scale
+    (antialiasing) along an axis that shrinks, as jax does by default."""
+    shrink = size[0] < x.shape[2] or size[1] < x.shape[3]
+    return F.interpolate(x.float(), size=tuple(size), mode="bilinear",
+                         align_corners=False, antialias=shrink)
 
 
 def depth_to_space(x: torch.Tensor) -> torch.Tensor:
@@ -57,20 +77,21 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in ``compute_dtype`` on f32 parameters."""
+    """``nn.Conv2d`` computing in ``compute_dtype`` on f32 parameters;
+    ``kernel``, ``stride`` and ``padding`` take an int or an (h, w) pair."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, *, stride: int = 1,
-                 padding: int = 0, bias: bool = True,
+    def __init__(self, cin: int, cout: int, kernel, *, stride=1, padding=0,
+                 bias: bool = True, groups: int = 1,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding,
-                         bias=bias)
+                         bias=bias, groups=groups)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
-                        self.padding)
+                        self.padding, groups=self.groups)
 
 
 class Linear(nn.Linear):
@@ -150,22 +171,25 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.2)
 
 
-_ACTIVATIONS = {"none": None, "lrelu": leaky_relu}
+_ACTIVATIONS = {"none": None, "lrelu": leaky_relu, "relu": torch.relu}
+_NORMS = {"none": None, "in": instance_norm}
 
 
 class Conv2dBlock(nn.Module):
-    """pad -> conv -> activation, or with ``activation_first`` the
-    activation before the pad; the flax conv is ``Conv_0``.  The JAX
-    block's norms ("in", "bn", "group") are not ported: D and C, its only
-    users here, run without one."""
+    """pad -> conv -> norm -> activation, or with ``activation_first`` the
+    activation before the pad; the flax conv is ``Conv_0``.  ``kernel`` and
+    ``stride`` take an int or an (h, w) pair.  Norms: "none" and "in"
+    (``ops/norms.instance_norm``); the JAX block's "bn" and "group" wait
+    for their line-stack users."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 padding: int = 0, *, activation: str = "lrelu",
-                 pad_type: str = "zero", bias: bool = True,
-                 activation_first: bool = False,
+    def __init__(self, cin: int, cout: int, kernel, stride=1,
+                 padding: int = 0, *, norm: str = "none",
+                 activation: str = "lrelu", pad_type: str = "zero",
+                 bias: bool = True, activation_first: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.padding, self.pad_type = padding, pad_type
+        self.norm = _NORMS[norm]
         self.act = _ACTIVATIONS[activation]
         self.activation_first = activation_first
         self.Conv_0 = Conv2d(cin, cout, kernel, stride=stride, bias=bias,
@@ -175,6 +199,8 @@ class Conv2dBlock(nn.Module):
         if self.activation_first and self.act is not None:
             x = self.act(x)
         x = self.Conv_0(pad2d(x, self.padding, self.pad_type))
+        if self.norm is not None:
+            x = self.norm(x)
         if not self.activation_first and self.act is not None:
             x = self.act(x)
         return x

@@ -46,9 +46,13 @@ class Generator(nn.Module):
         super().__init__()
         dtype = getattr(torch, config.compute_dtype)
         final_hw = (config.img_height // 8, config.img_width // 8)
+        # style_dim only when it is not 512, as the JAX Generator passes
+        # it: the fixed-width vgg19 has no reducers and refuses it
+        extra = ({} if config.style_dim == 512
+                 else {"style_dim": config.style_dim})
         self.enc_image = get_style_encoder(
             config.style_encoder, in_channels=config.style_stack,
-            style_dim=config.style_dim, final_hw=final_hw, dtype=dtype)
+            final_hw=final_hw, dtype=dtype, **extra)
         self.text_encoder = TextEncoderFC(
             max_len=config.output_max_len, vocab_size=config.vocab_size,
             embed_dim=config.text_embed_dim, content_dim=config.style_dim,

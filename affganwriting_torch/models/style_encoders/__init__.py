@@ -1,7 +1,9 @@
 """Style-encoder registry: each backbone consumes the (S, 50, H, W) style
-stack and emits a 5-tap pyramid of ``style_dim``-channel features whose last
-tap is resized to (H/8, W/8).  This slice ports ``resnet50`` and
-``resnet18``."""
+stack and emits a pyramid of at least 5 taps whose taps 3 and 4 (the
+decoder's skips) and last tap have ``style_dim`` channels, the last resized
+to (H/8, W/8).  All ten keys of the JAX package's registry: resnet50,
+resnet18, cnn, vgg19, inception_v3, efficientnet_v2_l and dinov2_s/b/l/g.
+``vgg19`` has a fixed width of 512 and takes no ``style_dim``."""
 
 from __future__ import annotations
 
@@ -27,4 +29,14 @@ def get_style_encoder(name: str, **kwargs):
     return cls(**kwargs)
 
 
+def available() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+# populate the registry
 from affganwriting_torch.models.style_encoders import resnet  # noqa: E402,F401
+from affganwriting_torch.models.style_encoders import cnn  # noqa: E402,F401
+from affganwriting_torch.models.style_encoders import vgg  # noqa: E402,F401
+from affganwriting_torch.models.style_encoders import vit  # noqa: E402,F401
+from affganwriting_torch.models.style_encoders import inception  # noqa: E402,F401
+from affganwriting_torch.models.style_encoders import efficientnet  # noqa: E402,F401

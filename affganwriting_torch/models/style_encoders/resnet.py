@@ -3,8 +3,8 @@
 Port of ``affganwriting_tpu/models/style_encoders/resnet.py``: a
 torchvision-layout ResNet whose first conv takes the style stack, tapped at
 {stem-relu, layer1..layer4}, each tap reduced to ``style_dim`` channels by a
-1x1 conv, and the last tap resized bilinearly (half-pixel centres, as
-``jax.image.resize``) to ``final_hw``.  Submodule names follow the flax tree.
+1x1 conv, and the last tap resized bilinearly (``blocks.resize_bilinear``,
+as ``jax.image.resize``) to ``final_hw``.  Submodule names follow the flax tree.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from affganwriting_torch.models.blocks import BatchNorm, Conv2d
+from affganwriting_torch.models.blocks import BatchNorm, Conv2d, resize_bilinear
 from affganwriting_torch.models.style_encoders import register
 
 
@@ -118,9 +118,8 @@ class _ResNetStyleEncoder(nn.Module):
                 h = getattr(self, name)(h)
             taps.append(h)
         results = [getattr(self, f"reduce{i}")(t) for i, t in enumerate(taps)]
-        results[-1] = F.interpolate(
-            results[-1].float(), size=self.final_hw, mode="bilinear",
-            align_corners=False).to(self.dtype)
+        results[-1] = resize_bilinear(results[-1],
+                                      self.final_hw).to(self.dtype)
         return results
 
 

@@ -10,6 +10,13 @@ caller hands the flax trees over as nested dicts of numpy arrays
   them in forward, as the JAX package does.
 - ``scale``/``bias`` -> ``weight``/``bias``; ``embedding`` -> ``weight``;
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
+- A depthwise kernel (k, k, 1, C) -> (C, 1, k, k), the patch embedding
+  (14, 14, 50, D) -> (D, 50, 14, 14): the conv rule.  ``pos_embed`` keeps
+  its (1, N, D); LayerNorm's ``scale`` is its ``weight``.
+- flax attention (``MultiHeadDotProductAttention``: ``query``, ``key``,
+  ``value`` kernels (D, H, hd) with (H, hd) biases, ``out`` kernel
+  (H, hd, D)) -> four linears, the heads flattened head-major: q, k, v
+  weights (H * hd, D), biases (H * hd,), ``out`` weight (D, H * hd).
 - GRU cells (``ir iz in`` with bias, ``hr hz`` without, ``hn`` with) stack
   as torch's [r, z, n] with ``bias_hh = [0, 0, b_hn]``.  The recognizer's
   BiGRU keeps its four cells at ``enc/rnn/GRUCell_0..3`` in the order fwd0,
@@ -47,8 +54,10 @@ from affganwriting_torch.train.state import (
 )
 
 _GRU_GATES = frozenset(("ir", "iz", "in", "hr", "hz", "hn"))
+_ATTENTION = frozenset(("query", "key", "value", "out"))
 _KERNEL_PERM = {4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}
-_PARAM_LEAVES = {"bias": "bias", "scale": "weight", "embedding": "weight"}
+_PARAM_LEAVES = {"bias": "bias", "scale": "weight", "embedding": "weight",
+                 "pos_embed": "pos_embed"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -76,12 +85,30 @@ def _gru(cell: Mapping, prefix: str, suffix: str, path: tuple,
         out[_key(prefix, name + suffix)] = _t(v)
 
 
+def _attention(node: Mapping, prefix: str, path: tuple, out: dict,
+               consumed: set) -> None:
+    for proj, leaves in node.items():
+        for leaf, value in leaves.items():
+            a = np.asarray(value, np.float32)
+            if proj == "out" and leaf == "kernel":        # (H, hd, D)
+                a = a.reshape(-1, a.shape[-1]).T
+            elif leaf == "kernel":                         # (D, H, hd)
+                a = a.reshape(a.shape[0], -1).T
+            else:                                          # (H, hd) or (D,)
+                a = a.reshape(-1)
+            out[_key(prefix, proj, "weight" if leaf == "kernel" else leaf)] \
+                = _t(a)
+            consumed.add(path + (proj, leaf))
+
+
 def _walk(node: Mapping, path: tuple, collection: str, out: dict,
           consumed: set) -> None:
     for name, child in node.items():
         p = path + (name,)
         if isinstance(child, Mapping):
-            if collection == "params" and set(child) == _GRU_GATES:
+            if collection == "params" and set(child) == _ATTENTION:
+                _attention(child, _key(*p), (collection,) + p, out, consumed)
+            elif collection == "params" and set(child) == _GRU_GATES:
                 m = re.fullmatch(r"GRUCell_(\d+)", name)
                 if m:       # a BiGRU cell: layer k // 2, odd k reversed
                     k = int(m.group(1))

@@ -47,9 +47,26 @@ non-zero before printing any result.  Phases, each fatal on failure:
    launches a call, the width-1 beam reading as the greedy path),
    ``cli/inspect_ckpt``; epoch, eval, checkpoint save and load times and
    sizes, a batch's upload, the CER pass and the data stream alone,
-   generate_word words/s.
+   generate_word words/s;
+8. evaluation and the other style encoders: (a) on a small fp32 config,
+   each of the eight new encoders' pyramids, ``InceptionV3Pool3``'s
+   activations and ``FIDScorer``'s random features on the card against the
+   CPU (1e-3 of max(1, |CPU|)); (b) each encoder at full width
+   (``default_config().replace(style_encoder=...)``, bf16): one request of
+   1 writer x 64 words through ``make_generate_and_read_fn`` (images finite,
+   in [-1, 1], ``in_relu`` 2 and ``phase_head`` 1 launches on its wgmma
+   route), request ms, parameters and peak memory, then merged train
+   steps at batch 8 (losses finite, all four players moved, efficientnet's
+   running statistics moved, inception's bit-unchanged in the first; 3
+   more timed);
+   (c) ``cli/quality_report`` on phase 7's ``best`` (4 writers, 64 real
+   words each): its keys, ``cer`` equal to ``cer_of_folder``, a finite
+   ``fid_random_features``, the seconds of each part, the kernel launches,
+   and the activation pass alone (ms an image over 512 crops);
+   (d) ``cli/evaluate`` on the same folders, with and without
+   ``--per-writer``.
 
-The last lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
+Each phase prints its seconds.  The last lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -58,13 +75,18 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 SEED = 0
 WORDS = ["the", "quick", "brown", "fox", "jumps", "over", "lazy", "dog"]
+NEW_ENCODERS = ("cnn", "vgg19", "inception_v3", "efficientnet_v2_l",
+                "dinov2_s", "dinov2_b", "dinov2_l", "dinov2_g")
 
 # (memory bytes/s, dense bf16 tensor FLOP/s, f32 FLOP/s outside the tensor
 # cores) from NVIDIA's H100 data sheet, by the part the card's name names
@@ -766,7 +788,7 @@ class _Timed:
             setattr(cls, name, orig)
 
 
-def phase_trainer_runtime(torch, card: str):
+def phase_trainer_runtime(torch, card: str, tmp: str):
     """The word trainer runtime at full width (default_config: resnet50,
     bf16 on f32 parameters, Adam, merged D+G, batch 8, synthetic images
     from the in-repo GT), in a temporary logdir under ``build/``:
@@ -779,13 +801,12 @@ def phase_trainer_runtime(torch, card: str):
     (c) ``cli/generate_word`` from ``best``: the word ladder for one writer,
         greedily as a warm-up, then with a beam of 3, of 1 (which must read
         as the greedy path up to the first END) and greedily;
-    (d) ``cli/inspect_ckpt`` prints ``param_count``'s counts."""
+    (d) ``cli/inspect_ckpt`` prints ``param_count``'s counts.
+
+    The run stays in ``tmp`` (phase 8 scores its ``best``)."""
     import contextlib
     import io
     import os
-    import shutil
-    import tempfile
-    from pathlib import Path
 
     from affganwriting_torch.cli import generate_word, inspect_ckpt, train_word
     from affganwriting_torch.core.checkpoint import state_payload
@@ -798,9 +819,6 @@ def phase_trainer_runtime(torch, card: str):
         return (in_relu.launches, phase_head.launches_wgmma,
                 phase_head.launches)
 
-    root = Path(__file__).resolve().parent / "build"
-    root.mkdir(exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="phase7_", dir=root)
     logdir = os.path.join(tmp, "run")
     argv = ["--epochs", "2", "--max-writers", "16", "--eval-every", "1",
             "--save-every", "1", "--restart-rss-gb", "0", "--logdir", logdir]
@@ -944,9 +962,278 @@ def phase_trainer_runtime(torch, card: str):
         torch.cuda.empty_cache()
     finally:
         timed.restore()
-        shutil.rmtree(tmp, ignore_errors=True)
     log(f"  phase 7 on {card}")
     return out
+
+
+def _rel_err(got, ref) -> float:
+    """max |got - ref| over max(1, max |ref|), on the CPU in f32."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def phase_eval_reference(torch):
+    """(a) On a small fp32 config (32x104 style stacks, batch 2), each new
+    encoder's pyramid, ``InceptionV3Pool3``'s activations (8 crops) and
+    ``FIDScorer``'s random features on the card against the CPU: the same
+    weights (drawn on the CPU from the seed) within 1e-3 of max(1, |CPU|)
+    per tap; the scorer's features bit-equal."""
+    import numpy as np
+
+    from affganwriting_torch.eval.fid import FIDScorer, crop64_preprocess
+    from affganwriting_torch.gen.inference import init_weights
+    from affganwriting_torch.models.style_encoders import get_style_encoder
+
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.normal(size=(2, 50, 32, 104)).astype(np.float32))
+    errs = {}
+    for name in NEW_ENCODERS:
+        enc = init_weights(get_style_encoder(
+            name, final_hw=(4, 13), dtype=torch.float32), SEED).eval()
+        with torch.no_grad():
+            cpu = enc(x)
+            gpu = enc.cuda()(x.cuda())
+        errs[name] = max(_rel_err(g, c) for g, c in zip(gpu, cpu))
+        log(f"  {name}: {len(cpu)} taps, last {tuple(cpu[-1].shape)}; card "
+            f"vs CPU {errs[name]:.3g} (tol 1e-3)")
+        if not errs[name] <= 1e-3:
+            raise AssertionError(f"{name}'s pyramid on the card disagrees "
+                                 "with the CPU")
+        del enc, cpu, gpu
+    on_card, on_cpu = FIDScorer(), FIDScorer(device="cpu")
+    for k, v in on_cpu.model.state_dict().items():
+        if not torch.equal(on_card.model.state_dict()[k].cpu(), v):
+            raise AssertionError(f"FIDScorer's random features differ on "
+                                 f"the card: {k}")
+    imgs = crop64_preprocess(rng.random((8, 64, 216)).astype(np.float32))
+    a_card, a_cpu = on_card.activations(imgs), on_cpu.activations(imgs)
+    errs["inception_pool3"] = _rel_err(torch.from_numpy(a_card),
+                                       torch.from_numpy(a_cpu))
+    log(f"  FIDScorer ({on_card.provenance}): the same features on the card "
+        f"as on the CPU; pool3 activations {a_card.shape} card vs CPU "
+        f"{errs['inception_pool3']:.3g} (tol 1e-3)")
+    if not errs["inception_pool3"] <= 1e-3:
+        raise AssertionError("InceptionV3 on the card disagrees with the CPU")
+    return errs
+
+
+def phase_encoders(torch, card: str, counts, zero):
+    """(b) Each new encoder at full width (``default_config()`` with it,
+    bf16, random weights from the seed): one request of 1 writer x 64
+    words, then timed (median of 5 after a warm-up); parameters and peak
+    memory; merged train steps at batch 8 (Adam): one checked, then 3
+    timed (median; their peak memory is the train peak)."""
+    import numpy as np
+
+    from affganwriting_torch.core.config import default_config
+    from affganwriting_torch.gen.inference import (
+        encode_labels,
+        make_generate_and_read_fn,
+    )
+    from affganwriting_torch.train.parity import is_stat
+    from affganwriting_torch.train.state import PLAYERS, init_state
+    from affganwriting_torch.train.step import make_phased_train_step
+
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for name in NEW_ENCODERS:
+        cfg = default_config().replace(style_encoder=name)
+        style = rng.normal(size=(1, cfg.img_height, cfg.img_width,
+                                 cfg.style_stack)).astype(np.float32)
+        labels = encode_labels(WORDS * 8, cfg.output_max_len)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = make_generate_and_read_fn(cfg, seed=SEED)
+        build_s = time.perf_counter() - t0
+        n_enc = sum(p.numel() for p in run.gen.enc_image.parameters())
+        n_gen = sum(p.numel() for p in run.gen.parameters())
+        zero()
+        images, ids = run(style, labels)
+        torch.cuda.synchronize()
+        launched = counts()
+        img = images.float()
+        if tuple(images.shape) != (64, cfg.img_height, cfg.img_width, 1) \
+                or not bool(torch.isfinite(img).all()) \
+                or float(img.abs().max()) > 1:
+            raise AssertionError(f"{name}: images {tuple(images.shape)} not "
+                                 "finite or outside [-1, 1]")
+        if launched != (2, 1, 0):
+            raise AssertionError(f"{name}: a generate call launched "
+                                 f"{launched}, not in_relu 2 and phase_head "
+                                 "1 on its wgmma route")
+        run(style, labels)
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run(style, labels)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        req_ms = statistics.median(walls) * 1e3
+        serve_peak = torch.cuda.max_memory_allocated() / 2**30
+        del run, images, ids
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = init_state(cfg, seed=SEED)
+        state_s = time.perf_counter() - t0
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        batch = random_batch(torch, cfg, cfg.batch_size, gen, "cuda")
+        step = make_phased_train_step(cfg, merge_dg=True)
+        before = {n: {k: v.clone() for k, v in
+                      getattr(state, n).model.state_dict().items()}
+                  for n in PLAYERS}
+        zero()
+        _, metrics, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        losses = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"{name}: non-finite losses {losses}")
+        if counts() != (0, 0, 0):
+            raise AssertionError(f"{name}: a train step launched a "
+                                 f"forward-only kernel: {counts()}")
+        for n in PLAYERS:
+            now = getattr(state, n).model.state_dict()
+            if all(torch.equal(now[k], v) for k, v in before[n].items()
+                   if not is_stat(k)):
+                raise AssertionError(f"{name}: {n}'s parameters did not move")
+        enc_stats = [k for k in before["gen"] if k.startswith("enc_image.")
+                     and is_stat(k)]
+        now = state.gen.model.state_dict()
+        moved = sum(not torch.equal(now[k], before["gen"][k])
+                    for k in enc_stats)
+        if name == "efficientnet_v2_l" and moved != len(enc_stats):
+            raise AssertionError(f"efficientnet: {moved}/{len(enc_stats)} "
+                                 "running statistics moved in G's phase")
+        if name == "inception_v3" and (not enc_stats or moved):
+            raise AssertionError(f"inception_v3: {moved}/{len(enc_stats)} "
+                                 "trunk statistics changed")
+        del before, now
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, metrics, _ = step(state, batch, gen)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            if not all(math.isfinite(float(v)) for v in metrics.values()):
+                raise AssertionError(f"{name}: non-finite losses")
+        step_ms = statistics.median(walls) * 1e3
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+        del state, batch, step
+        torch.cuda.empty_cache()
+        out[name] = {"encoder_params": n_enc, "gen_params": n_gen,
+                     "build_s": build_s, "request_ms": req_ms,
+                     "words_per_s": 64 / (req_ms / 1e3),
+                     "serve_peak_gib": serve_peak,
+                     "launches_generate_call": list(launched),
+                     "state_build_s": state_s, "step_ms": step_ms,
+                     "train_peak_gib": train_peak, "step0_losses": losses,
+                     "enc_stats": len(enc_stats), "enc_stats_moved": moved}
+        log(f"  {name}: encoder {n_enc / 1e6:.2f} M of G's {n_gen / 1e6:.2f}"
+            f" M parameters, built in {build_s:.1f} s; 1 x 64 words "
+            f"{req_ms:.3f} ms (median of 5, {64 / (req_ms / 1e3):.1f} "
+            f"words/s), launches {launched}, peak {serve_peak:.3f} GiB; "
+            f"train state {state_s:.1f} s, merged step at batch "
+            f"{cfg.batch_size} {step_ms:.3f} ms (median of 3 after the "
+            f"first), peak "
+            f"{train_peak:.3f} GiB, encoder statistics moved {moved}/"
+            f"{len(enc_stats)}; step 0 l_total {losses['l_total']:.4f}")
+    log(f"  encoders on {card}")
+    return out
+
+
+def phase_quality_report(torch, tmp: str, counts, zero):
+    """(c) ``cli/quality_report`` on phase 7's ``best`` with 4 writers and
+    64 real words each; (d) ``cli/evaluate`` on its two folders, with and
+    without ``--per-writer``."""
+    import contextlib
+    import io
+    import os
+
+    from affganwriting_torch.cli import evaluate, quality_report
+    from affganwriting_torch.eval.generated import cer_of_folder
+
+    out_dir = os.path.join(tmp, "quality")
+    zero()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = quality_report.main([
+            "--ckpt", os.path.join(tmp, "run", "ckpt"), "--ckpt-name",
+            "best", "--max-writers", "4", "--words-per-writer", "64",
+            "--out", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    gen_dir, real_dir = (os.path.join(out_dir, d)
+                         for d in ("generated", "real"))
+    keys = {"scenario", "ckpt", "cer", "fid_provenance",
+            "fid_random_features", "seconds"}
+    if not keys <= set(report) or not (
+            "wid_fid_random_features" in report or "wid_fid_error" in report):
+        raise AssertionError(f"quality_report keys {sorted(report)}")
+    if report["cer"] != cer_of_folder(gen_dir):
+        raise AssertionError(f"report cer {report['cer']} is not "
+                             f"cer_of_folder's {cer_of_folder(gen_dir)}")
+    if not math.isfinite(report["fid_random_features"]):
+        raise AssertionError(f"fid {report['fid_random_features']}")
+    calls = report["cer"]["count"] // 4 // 64 + (
+        report["cer"]["count"] // 4 % 64 > 0)
+    if launched != (2 * 4 * calls, 4 * calls, 0):
+        raise AssertionError(f"quality_report launched {launched} for "
+                             f"{4 * calls} generate calls")
+    n_real = len(os.listdir(real_dir))
+    log(f"  quality_report: {wall:.3f} s wall; {report['cer']['count']} "
+        f"generated and {n_real} real words; cer {report['cer']['cer']:.3f}"
+        f" (= cer_of_folder), fid_random_features "
+        f"{report['fid_random_features']:.6g}, wid "
+        f"{report.get('wid_fid_random_features', report.get('wid_fid_error'))}"
+        f"; seconds { {k: round(v, 3) for k, v in report['seconds'].items()} }"
+        f"; launches {launched} over {4 * calls} generate calls")
+    res = {"report": report, "wall_s": wall, "launches": list(launched),
+           "generate_calls": 4 * calls, "real_words": n_real}
+    # the activation pass alone: 512 crops, upload and download included
+    import numpy as np
+
+    from affganwriting_torch.eval.fid import FIDScorer, crop64_preprocess
+
+    scorer = FIDScorer()
+    crops = crop64_preprocess(np.random.default_rng(SEED).random(
+        (512, 64, 216)).astype(np.float32))
+    scorer.activations(crops[:64])
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scorer.activations(crops)
+        walls.append(time.perf_counter() - t0)
+    res["activations_ms_per_image"] = statistics.median(walls) * 1e3 / 512
+    log(f"  FID activations alone: {res['activations_ms_per_image']:.4f} ms "
+        f"an image (512 crops in batches of {scorer.batch_size}, f32, "
+        "median of 3)")
+    for extra, key in (([], "fid_random_features"),
+                       (["--per-writer"], "wid_fid_random_features")):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            ev = evaluate.main([gen_dir, "--real", real_dir] + extra)
+        s = time.perf_counter() - t0
+        if json.loads(buf.getvalue()) != ev or set(ev) != {
+                "cer", "fid_provenance", key}:
+            raise AssertionError(f"evaluate {extra}: {ev}")
+        if ev["cer"] != report["cer"] or not math.isfinite(ev[key]):
+            raise AssertionError(f"evaluate {extra}: {ev}")
+        if key in report and abs(ev[key] - report[key]) > 1e-3 * max(
+                1.0, abs(report[key])):
+            raise AssertionError(f"evaluate's {key} {ev[key]} is not the "
+                                 f"report's {report[key]}")
+        res[f"evaluate{''.join(extra)}"] = {"s": s, **ev}
+        log(f"  evaluate {' '.join(extra)}: {key} {ev[key]:.6g} in {s:.3f} "
+            "s, cer as the report's")
+    return res
 
 
 def _host_parts(torch, trainer) -> dict:
@@ -1014,6 +1301,8 @@ def main() -> int:
 
     from affganwriting_torch.ops import cuda_build
 
+    t_start = time.perf_counter()
+
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 references in f32
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
@@ -1033,17 +1322,35 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"    {line.strip()}")
     cuda_build.library()
+    seconds = {"1": time.perf_counter() - t_start}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = time.perf_counter() - t0
+        log(f"  phase {label} took {seconds[label]:.1f} s")
+        return out
+
+    from affganwriting_torch.ops.in_relu_cuda import in_relu
+    from affganwriting_torch.ops.phase_head_cuda import phase_head
+
+    def counts():
+        return (in_relu.launches, phase_head.launches_wgmma,
+                phase_head.launches)
+
+    def zero():
+        in_relu.launches = phase_head.launches_wgmma = phase_head.launches = 0
 
     log("[2] kernel parity vs the plain versions (batch 64)")
-    errs = phase_parity(torch)
+    errs = timed("2", phase_parity, torch)
     log("[3] reference: port on the card vs port on the CPU, small fp32 "
         "config")
-    phase_reference(torch)
+    timed("3", phase_reference, torch)
     log("[4] main path at full width (default_config, bf16)")
     launches: dict[str, int] = {}
-    main_path = phase_main_path(torch, launches, smi)
+    main_path = timed("4", phase_main_path, torch, launches, smi)
     log("[5] kernel times at batch 256, bf16")
-    times = phase_kernel_times(torch, F, peaks)
+    times = timed("5", phase_kernel_times, torch, F, peaks)
 
     times["phase_head"].update({
         "route": "wgmma+tma",
@@ -1069,9 +1376,9 @@ def main() -> int:
         })
     log("[6] train: the merged step on the card vs on the CPU, small fp32 "
         "config")
-    train_ref = phase_train_reference(torch)
+    train_ref = timed("6a", phase_train_reference, torch)
     log("[6] train: full width (default_config, bf16, Adam, batch 8)")
-    train = phase_train(torch, smi)
+    train = timed("6b", phase_train, torch, smi)
     # counts are (in_relu, phase_head wgmma route, phase_head f32 route)
     for k, routes in (("in_relu", (0,)), ("phase_head", (1, 2))):
         kernels[[r["name"] for r in kernels].index(k)]["detail"].update({
@@ -1079,18 +1386,38 @@ def main() -> int:
             for key in ("launches_13_train_steps", "launches_eval_step")})
     log("[7] trainer runtime: train_word 2 epochs -> resume -> "
         "generate_word -> inspect_ckpt (default_config, bf16, batch 8)")
-    t0 = time.perf_counter()
-    runtime = phase_trainer_runtime(torch, smi)
-    runtime["phase_s"] = time.perf_counter() - t0
-    log(f"  phase 7 took {runtime['phase_s']:.1f} s")
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase7_", dir=root)
+    try:
+        runtime = timed("7", phase_trainer_runtime, torch, smi, tmp)
+        runtime["phase_s"] = seconds["7"]
+        log("[8] evaluation and the other style encoders")
+        log("[8a] card vs CPU, small fp32 config")
+        eval_ref = timed("8a", phase_eval_reference, torch)
+        log("[8b] each new style encoder at full width (default_config, "
+            "bf16)")
+        encoders = timed("8b", phase_encoders, torch, smi, counts, zero)
+        log("[8c,d] quality_report on phase 7's best; evaluate")
+        quality = timed("8cd", phase_quality_report, torch, tmp, counts,
+                        zero)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     for k, key in (("in_relu", 0), ("phase_head", 1)):
         kernels[[r["name"] for r in kernels].index(k)]["detail"].update({
             "launches_trainer_eval_batch":
                 runtime["eval_launches_per_batch"][key],
             "launches_generate_word_call":
-                runtime["generate_word"]["beam0"]["launches"][key]})
+                runtime["generate_word"]["beam0"]["launches"][key],
+            "launches_quality_report_call": quality["launches"][key],
+            "launches_encoder_generate_call": {
+                n: e["launches_generate_call"][key]
+                for n, e in encoders.items()}})
+    log(f"phase seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
     log(json.dumps({"main_path": main_path, "train_reference": train_ref,
                     "train": train, "trainer_runtime": runtime,
+                    "eval_reference": eval_ref, "encoders": encoders,
+                    "quality_report": quality, "phase_s": seconds,
                     "build_s": build_s}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -96,6 +96,29 @@ def test_trainer_and_clis_need_a_card_or_an_explicit_cpu(tmp_path,
     assert not any((tmp_path / d).exists() for d in ("run", "gen", "ck"))
 
 
+def test_fid_and_evaluation_clis_need_a_card_or_an_explicit_cpu(tmp_path):
+    """``FIDScorer``, ``cli/evaluate`` with a real folder and
+    ``cli/quality_report`` raise before they score or write anything."""
+    from affganwriting_torch.cli import evaluate, quality_report
+    from affganwriting_torch.eval.fid import FIDScorer
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    (tmp_path / "gen").mkdir()
+    for extra in ([], ["--device", "cuda"]):
+        for run in (
+                lambda: FIDScorer(**({"device": "cuda"} if extra else {})),
+                lambda: evaluate.main([str(tmp_path / "gen"), "--real",
+                                       str(tmp_path / "gen")] + extra),
+                lambda: quality_report.main(
+                    ["--ckpt", str(tmp_path / "ck"), "--out",
+                     str(tmp_path / "q")] + extra)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                run()
+    assert not (tmp_path / "q").exists()
+    assert FIDScorer(device="cpu").device.type == "cpu"
+
+
 def test_kernel_wrappers_refuse_an_input_that_requires_grad():
     """The kernels are forward-only: with grad mode on, a CUDA input that
     requires grad raises instead of returning an output without a
