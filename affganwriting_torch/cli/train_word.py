@@ -8,9 +8,15 @@ the JAX CLI; ``--device cpu`` runs it on the CPU.  ``build_trainer(argv)``
 returns the trainer (resumed from ``<logdir>/ckpt/latest`` when there is
 one) and the epoch count; ``main`` fits it and returns it.
 
-``--style-encoder`` takes every key of ``models/style_encoders``.  Not
-ported yet, each refused with the ROADMAP item it waits for: ``--mesh``
-(Queue 1 item 10), ``--recognizer trocr`` and ``--trocr-*`` (item 8).
+``--style-encoder`` takes every key of ``models/style_encoders``.
+``--recognizer trocr`` trains against the TrOCR drop-in R, frozen
+(``rec_frozen``: G gets its gradient, R keeps its weights), at
+``--trocr-preset`` (tiny by default) with random weights.
+``--trocr-ckpt DIR`` imports a local HF checkpoint into it, as the JAX CLI
+does: it needs ``--recognizer trocr``, forces the base dimensions (refusing
+``--trocr-preset tiny``), takes the char->token table from the
+directory's tokenizer, and refuses a directory it cannot read.  Not
+ported yet: ``--mesh`` (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -26,11 +32,36 @@ def refuse_unported(args) -> None:
     if getattr(args, "mesh", "none") != "none":
         raise SystemExit("--mesh: the multi-device port waits for ROADMAP "
                          "Queue 1 item 10; run without --mesh")
-    if getattr(args, "recognizer", None) not in (None, "seq2seq") or \
-            getattr(args, "trocr_preset", None) or \
-            getattr(args, "trocr_ckpt", None):
-        raise SystemExit("the TrOCR recognizer waits for ROADMAP Queue 1 "
-                         "item 8; the port has --recognizer seq2seq")
+
+
+def trocr_settings(args) -> tuple[dict, dict | None]:
+    """(config fields, ``TrOCRCore`` state dict or None) of the TrOCR flags,
+    under the JAX CLI's rules (affganwriting_tpu/cli/train_word.py:71-113):
+    the pretrained import happens before the trainer exists, so that its
+    tokenizer's table reaches the R the step is built with."""
+    fields = {"recognizer": args.recognizer,
+              "rec_frozen": args.recognizer == "trocr",
+              "trocr_preset": args.trocr_preset or "tiny"}
+    if not args.trocr_ckpt:
+        return fields, None
+    if args.recognizer != "trocr":
+        raise SystemExit(
+            "--trocr-ckpt requires --recognizer trocr: the loaded weights "
+            f"cannot drive a '{args.recognizer}' recognizer")
+    if args.trocr_preset == "tiny":
+        raise SystemExit("--trocr-ckpt holds base-handwritten dims; it "
+                         "cannot load into --trocr-preset tiny")
+    from affganwriting_torch.models.recognizer.trocr import load_pretrained
+
+    loaded = load_pretrained(args.trocr_ckpt)
+    if loaded is None:
+        raise SystemExit(f"--trocr-ckpt {args.trocr_ckpt}: not a readable "
+                         "local HF checkpoint directory")
+    state, mv, vm = loaded
+    fields.update(trocr_preset="base",
+                  trocr_map_vec=tuple(int(x) for x in mv),
+                  trocr_valid_mask=tuple(bool(x) for x in vm))
+    return fields, state
 
 
 def build_trainer(argv=None):
@@ -42,8 +73,11 @@ def build_trainer(argv=None):
                    choices=available())
     p.add_argument("--recognizer", default="seq2seq",
                    choices=("seq2seq", "trocr"))
-    p.add_argument("--trocr-preset", default=None, choices=("tiny", "base"))
-    p.add_argument("--trocr-ckpt", default=None)
+    p.add_argument("--trocr-preset", default=None, choices=("tiny", "base"),
+                   help="TrOCR dims when --recognizer trocr (default tiny; "
+                        "base when --trocr-ckpt is given)")
+    p.add_argument("--trocr-ckpt", default=None,
+                   help="local HF TrOCR checkpoint dir to import weights")
     p.add_argument("--oov", action="store_true", default=True)
     p.add_argument("--no-oov", dest="oov", action="store_false")
     p.add_argument("--image-root", default=None,
@@ -70,6 +104,7 @@ def build_trainer(argv=None):
                    help="default: the CUDA card; 'cpu' to run on the CPU")
     args = p.parse_args(argv)
     refuse_unported(args)
+    trocr_fields, trocr_state = trocr_settings(args)
 
     from affganwriting_torch.data.iam import (
         default_reference_paths,
@@ -83,7 +118,7 @@ def build_trainer(argv=None):
     cfg = default_config().replace(
         batch_size=args.batch_size, style_encoder=args.style_encoder,
         oov=args.oov, compute_dtype=args.compute_dtype,
-        merge_dg=args.merge_dg)
+        merge_dg=args.merge_dg, **trocr_fields)
     paths = default_reference_paths()
     tr = parse_groundtruth(paths["train_gt"])
     te = parse_groundtruth(paths["test_gt"])
@@ -102,6 +137,8 @@ def build_trainer(argv=None):
         eval_every=args.eval_every, save_every=args.save_every,
         patience=args.patience, rec_plateau=args.rec_plateau,
         restart_rss_gb=args.restart_rss_gb, device=args.device)
+    if trocr_state is not None:
+        trainer.state.rec.model.core.load_state_dict(trocr_state)
     return trainer, args.epochs
 
 

@@ -1,7 +1,8 @@
 """Batched, deterministic generate-and-recognize.
 
 Port of ``affganwriting_tpu/gen/inference.py:26-110`` and of
-``train/state.py:build_models`` for the serving pair (G, seq2seq R).  The
+``train/state.py:build_models`` for the serving pair (G, R: the seq2seq
+recognizer or the TrOCR drop-in, ``new_recognizer``).  The
 style stack is encoded once and a batch of words is generated, then read
 back by R with greedy decoding.  Public layouts are the JAX package's: style
 stacks (S, H, W, 50), labels (B, T), images (B, H, W, 1), greedy ids
@@ -66,16 +67,36 @@ def build_generator(config: WordGanConfig, device=None, *, state=None,
     return _load(Generator(config), state, seed, dev)
 
 
+def new_recognizer(config: WordGanConfig, rec_dropout: float = 0.5):
+    """R behind ``config.recognizer`` (JAX ``train/state.py:48-73``), with
+    torch's initial weights: the seq2seq ``Recognizer`` at
+    ``config.compute_dtype`` with dropout ``rec_dropout``, or the TrOCR
+    drop-in at ``config.trocr_preset``'s dimensions (f32 whatever the
+    compute dtype; no dropout) with the config's char->token table."""
+    if config.recognizer == "seq2seq":
+        return Recognizer(config.vocab_size, config.rec_hidden,
+                          config.rec_embed, config.output_max_len,
+                          config.img_height,
+                          getattr(torch, config.compute_dtype), rec_dropout)
+    if config.recognizer == "trocr":
+        from affganwriting_torch.models.recognizer.trocr import (
+            TrOCRArch,
+            TrOCRRecognizer,
+        )
+
+        arch = (TrOCRArch.base_handwritten()
+                if config.trocr_preset == "base" else TrOCRArch.tiny())
+        return TrOCRRecognizer(arch, config.output_max_len,
+                               config.trocr_map_vec, config.trocr_valid_mask)
+    raise ValueError(f"unknown recognizer {config.recognizer!r}")
+
+
 def build_recognizer(config: WordGanConfig, device=None, *, state=None,
-                     seed: int = 1) -> Recognizer:
+                     seed: int = 1) -> nn.Module:
+    """R (``new_recognizer``) on ``device`` (``None``: the card) in eval
+    mode, with ``state`` or random weights from ``seed``."""
     dev = resolve_device(device)
-    if config.recognizer != "seq2seq":
-        raise ValueError(f"the port has the seq2seq recognizer only, got "
-                         f"{config.recognizer!r}")
-    rec = Recognizer(config.vocab_size, config.rec_hidden, config.rec_embed,
-                     config.output_max_len, config.img_height,
-                     getattr(torch, config.compute_dtype))
-    return _load(rec, state, seed, dev)
+    return _load(new_recognizer(config), state, seed, dev)
 
 
 def build_models(config: WordGanConfig, device=None, *, seed: int = 0):
@@ -115,15 +136,23 @@ def make_generate_fn(config: WordGanConfig, gen_state=None, *, device=None,
 
     @torch.inference_mode()
     def generate(style_stack, labels):
-        style = torch.as_tensor(style_stack, dtype=torch.float32, device=dev)
-        labels = torch.as_tensor(labels, device=dev).long()
-        b, s = labels.shape[0], style.shape[0]
-        _check_batch(b, s)
-        pyramid = _tile_pyramid(gen.encode_style(style), b, s)
-        return gen.generate(pyramid, labels).permute(0, 2, 3, 1)
+        return generate_images(gen, style_stack, labels, dev)
 
     generate.gen = gen
     return generate
+
+
+def generate_images(gen: Generator, style_stack, labels,
+                    device) -> torch.Tensor:
+    """``gen``'s images (B, H, W, 1) of ``labels`` (B, T), word i in the
+    style of stack ``i % S`` of ``style_stack`` (S, H, W, 50), in ``gen``'s
+    current mode; the caller picks the grad mode."""
+    style = torch.as_tensor(style_stack, dtype=torch.float32, device=device)
+    labels = torch.as_tensor(labels, device=device).long()
+    b, s = labels.shape[0], style.shape[0]
+    _check_batch(b, s)
+    pyramid = _tile_pyramid(gen.encode_style(style), b, s)
+    return gen.generate(pyramid, labels).permute(0, 2, 3, 1)
 
 
 def make_generate_and_read_fn(config: WordGanConfig, gen_state=None,

@@ -1,10 +1,14 @@
-"""Attention seq2seq recognizer R: free-running greedy decoding and batched
-beam search.
+"""Attention seq2seq recognizer R: greedy decoding with optional teacher
+forcing, and batched beam search.
 
 Port of ``affganwriting_tpu/models/recognizer/seq2seq.py`` (``DecoderCell``,
-``Recognizer.__call__``/``decode`` with no teacher forcing, and
-``beam_search``): the JAX
-``nn.scan`` over ``output_max_len - 1`` steps is a Python loop here.  The
+``Recognizer.__call__``/``decode`` and ``beam_search``): the JAX
+``nn.scan`` over ``output_max_len - 1`` steps is a Python loop here.
+Teacher forcing (the standalone HTR trainer's) feeds step t + 1 the label
+``labels[:, t + 1]`` where a (steps, B) mask is set, else step t's argmax;
+the mask is ``uniform < teacher_rate`` drawn from a ``torch.Generator``
+(the JAX package draws ``jax.random.uniform(key, (steps, B)) < rate``), or
+handed in whole.  The GAN step free-runs (no mask, nothing drawn).  The
 decoder runs in f32 whatever the trunk's compute dtype, as in the JAX
 package.  In train mode (the GAN step's free-running decoding) the first
 GRU layer's output drops out before the second, with a fresh mask each
@@ -61,7 +65,8 @@ def _keep_n_gate(hidden: int):
 class Recognizer(nn.Module):
     """VGG-BiGRU encoder + greedy attention decoder.  ``forward(img,
     labels)`` returns per-step logits (B, T_out - 1, V) and attention
-    weights (B, T_out - 1, W/16); only ``labels[:, 0]`` (GO) is read."""
+    weights (B, T_out - 1, W/16); free running reads only ``labels[:, 0]``
+    (GO), teacher forcing ``labels[:, 1:]`` where its mask is set."""
 
     def __init__(self, vocab_size: int = VOCAB.size, hidden: int = 512,
                  embed_dim: int = 60, output_max_len: int = 12,
@@ -78,20 +83,39 @@ class Recognizer(nn.Module):
             if name.rsplit(".", 1)[-1].startswith("bias_hh"):
                 p.register_hook(_keep_n_gate(hidden))
 
-    def forward(self, img, labels, generator: torch.Generator | None = None):
+    def forward(self, img, labels, generator: torch.Generator | None = None,
+                *, teacher_rate: float = 0.0,
+                teacher_mask: torch.Tensor | None = None):
         enc_out, hidden0 = self.enc(img, generator)
-        return self.decode(enc_out, hidden0, labels, generator)
+        return self.decode(enc_out, hidden0, labels, generator,
+                           teacher_rate=teacher_rate,
+                           teacher_mask=teacher_mask)
 
     def decode(self, enc_out, hidden0, labels,
-               generator: torch.Generator | None = None):
+               generator: torch.Generator | None = None, *,
+               teacher_rate: float = 0.0,
+               teacher_mask: torch.Tensor | None = None):
+        """Greedy decode; with ``teacher_mask`` (steps, B) bool, or with
+        ``teacher_rate`` > 0 (the mask drawn from ``generator`` before any
+        dropout mask of the decoder), step t + 1's input is ``labels[:, t +
+        1]`` where the mask's row t is set.  Without either nothing is
+        drawn: free running."""
+        steps = self.output_max_len - 1
+        if teacher_mask is None and teacher_rate > 0:
+            teacher_mask = torch.rand((steps, labels.shape[0]),
+                                      generator=generator,
+                                      device=labels.device) < teacher_rate
         hidden = hidden0
         attn = enc_out.new_zeros(enc_out.shape[:2])
         prev = labels[:, 0]
         logits, attns = [], []
-        for _ in range(self.output_max_len - 1):
+        for t in range(steps):
             hidden, attn, step_logits = self.dec(hidden, attn, prev, enc_out,
                                                  generator)
             prev = step_logits.argmax(dim=-1)   # ties: first index, as jnp
+            if teacher_mask is not None:
+                prev = torch.where(teacher_mask[t], labels[:, t + 1].long(),
+                                   prev)
             logits.append(step_logits)
             attns.append(attn)
         return torch.stack(logits, dim=1), torch.stack(attns, dim=1)

@@ -25,6 +25,18 @@ def label_smoothing_kl(logits: torch.Tensor, targets: torch.Tensor,
     targets (N,).  true_dist puts 1 - smoothing on the target and
     smoothing / (V - 2) elsewhere, zeroes the PAD column and the rows whose
     target is PAD; p log p at p = 0 counts as 0."""
+    return _kl_terms(logits, targets, smoothing, pad_id).sum()
+
+
+def label_smoothing_kl_per_row(logits: torch.Tensor, targets: torch.Tensor,
+                               smoothing: float = 0.4,
+                               pad_id: int = VOCAB.pad) -> torch.Tensor:
+    """``label_smoothing_kl`` unreduced over the rows: (N,)."""
+    return _kl_terms(logits, targets, smoothing, pad_id).sum(-1)
+
+
+def _kl_terms(logits, targets, smoothing, pad_id) -> torch.Tensor:
+    """The (N, V) summands of ``label_smoothing_kl``."""
     logits = logits.float()
     n, v = logits.shape
     true_dist = torch.full((n, v), smoothing / (v - 2), device=logits.device)
@@ -34,7 +46,7 @@ def label_smoothing_kl(logits: torch.Tensor, targets: torch.Tensor,
     log_probs = F.log_softmax(logits, dim=-1)
     plogp = torch.where(true_dist > 0, true_dist * true_dist.log(),
                         torch.zeros((), device=logits.device))
-    return (plogp - true_dist * log_probs).sum()
+    return plogp - true_dist * log_probs
 
 
 def rec_loss(logits: torch.Tensor, labels_with_go: torch.Tensor,

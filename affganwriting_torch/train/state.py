@@ -17,10 +17,13 @@ import torch
 from torch import nn
 
 from affganwriting_torch.core.config import WordGanConfig
-from affganwriting_torch.gen.inference import init_weights, resolve_device
+from affganwriting_torch.gen.inference import (
+    init_weights,
+    new_recognizer,
+    resolve_device,
+)
 from affganwriting_torch.models.discriminator import Discriminator
 from affganwriting_torch.models.generator import Generator
-from affganwriting_torch.models.recognizer.seq2seq import Recognizer
 from affganwriting_torch.models.writer_cla import WriterClassifier
 
 PLAYERS = ("gen", "dis", "cla", "rec")
@@ -46,21 +49,18 @@ class WordGanState:
 
 def new_models(config: WordGanConfig, rec_dropout: float = 0.5) -> dict:
     """The four players, constructed on the current default device with
-    torch's initial weights: {"gen", "dis", "cla", "rec"}.  ``rec_dropout``
-    is R's dropout rate (0.5 in the JAX package; 0 for parity runs)."""
+    torch's initial weights: {"gen", "dis", "cla", "rec"}.  R is
+    ``config.recognizer``'s (``gen/inference.py:new_recognizer``);
+    ``rec_dropout`` is the seq2seq R's dropout rate (0.5 in the JAX
+    package; 0 for parity runs)."""
     dtype = getattr(torch, config.compute_dtype)
-    if config.recognizer != "seq2seq":
-        raise ValueError(f"the port has the seq2seq recognizer only, got "
-                         f"{config.recognizer!r}")
     return {
         "gen": Generator(config),
         "dis": Discriminator(config.img_height, config.img_width,
                              config.dis_final_size, config.dis_layers, dtype),
         "cla": WriterClassifier(config.num_writers, config.img_height,
                                 config.img_width, config.dis_layers, dtype),
-        "rec": Recognizer(config.vocab_size, config.rec_hidden,
-                          config.rec_embed, config.output_max_len,
-                          config.img_height, dtype, rec_dropout),
+        "rec": new_recognizer(config, rec_dropout),
     }
 
 
@@ -69,7 +69,10 @@ def build_models(config: WordGanConfig, device=None, *, seed: int = 0,
                  rec_dropout: float = 0.5) -> dict:
     """The four players on ``device`` (``None``: the card), with the state
     dicts in ``weights`` (e.g. from ``utils/from_flax.word_gan_from_flax``)
-    or random weights from ``seed``."""
+    or random weights from ``seed``.  With ``config.rec_frozen`` R's
+    parameters take no gradient (the TrOCR drop-in keeps its weights,
+    trocr_recognizer.py:119-121); G still gets R's gradient through the
+    fakes."""
     dev = resolve_device(device)
     models = new_models(config, rec_dropout)
     for name, model in models.items():
@@ -78,6 +81,8 @@ def build_models(config: WordGanConfig, device=None, *, seed: int = 0,
         else:
             model.load_state_dict(weights[name], strict=True)
         models[name] = model.to(dev)
+    if config.rec_frozen:
+        models["rec"].requires_grad_(False)
     return models
 
 

@@ -13,6 +13,11 @@ caller hands the flax trees over as nested dicts of numpy arrays
 - A depthwise kernel (k, k, 1, C) -> (C, 1, k, k), the patch embedding
   (14, 14, 50, D) -> (D, 50, 14, 14): the conv rule.  ``pos_embed`` keeps
   its (1, N, D); LayerNorm's ``scale`` is its ``weight``.
+- TrOCR (``models/recognizer/trocr.py``, whose module names are the flax
+  tree's): ``cls_token`` and the decoder's ``embed_positions`` table keep
+  their shapes; the ViT attention's ``query``/``key``/``value``/``out``
+  are plain (D, D) Dense kernels, which the attention rule below reshapes
+  to themselves and transposes as the dense rule would.
 - flax attention (``MultiHeadDotProductAttention``: ``query``, ``key``,
   ``value`` kernels (D, H, hd) with (H, hd) biases, ``out`` kernel
   (H, hd, D)) -> four linears, the heads flattened head-major: q, k, v
@@ -45,8 +50,8 @@ import numpy as np
 import torch
 
 from affganwriting_torch.core.config import WordGanConfig
+from affganwriting_torch.gen.inference import new_recognizer
 from affganwriting_torch.models.generator import Generator
-from affganwriting_torch.models.recognizer.seq2seq import Recognizer
 from affganwriting_torch.train.state import (
     PLAYERS,
     make_optimizers,
@@ -57,7 +62,8 @@ _GRU_GATES = frozenset(("ir", "iz", "in", "hr", "hz", "hn"))
 _ATTENTION = frozenset(("query", "key", "value", "out"))
 _KERNEL_PERM = {4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}
 _PARAM_LEAVES = {"bias": "bias", "scale": "weight", "embedding": "weight",
-                 "pos_embed": "pos_embed"}
+                 "pos_embed": "pos_embed", "cls_token": "cls_token",
+                 "embed_positions": "embed_positions"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -256,8 +262,17 @@ def from_flax(gen_variables: Mapping, rec_variables: Mapping,
     built from ``config``."""
     with torch.device("meta"):
         gen = Generator(config)
-        rec = Recognizer(config.vocab_size, config.rec_hidden,
-                         config.rec_embed, config.output_max_len,
-                         config.img_height)
+        rec = new_recognizer(config)
     return (convert_module(gen_variables, gen),
             convert_module(rec_variables, rec))
+
+
+def trocr_core_from_flax(params: Mapping, arch) -> dict:
+    """A flax ``TrOCRCore`` param tree (e.g. the JAX package's
+    ``import_torch_state_dict`` output, numpy leaves) -> a state dict for
+    the port's ``TrOCRCore(arch)``."""
+    from affganwriting_torch.models.recognizer.trocr import TrOCRCore
+
+    with torch.device("meta"):
+        core = TrOCRCore(arch)
+    return convert_module({"params": params}, core)

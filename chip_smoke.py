@@ -64,7 +64,26 @@ non-zero before printing any result.  Phases, each fatal on failure:
    ``fid_random_features``, the seconds of each part, the kernel launches,
    and the activation pass alone (ms an image over 512 crops);
    (d) ``cli/evaluate`` on the same folders, with and without
-   ``--per-writer``.
+   ``--per-writer``;
+9. TrOCR, the teacher phase, HTR, entry and benches, TrOCR in f32
+   throughout: (a) TrOCR ``tiny`` on the card against the CPU, one forward
+   and the gradient into the images (1e-4 of max(1, |CPU|) and of the
+   largest gradient entry); (b) ``train_word --recognizer trocr
+   --trocr-preset base`` at ``default_config()`` (TrOCR base, random
+   weights from the seed, frozen): 3 warm-up and 5 timed merged steps at
+   batch 8 (losses finite, TrOCR bit-unchanged, G moved, no kernel), step
+   ms, words/s and peak memory, one eval step (4 + 2 launches) and a 1 x
+   64-word request (2 + 1 launches); (c) ``run_teacher_phase`` over 4
+   batches of 8 with the on-device TrOCR teacher (base) and with
+   ``SelfTeacher`` (beam 3), each at ``conf_threshold`` 0.6 and 0.0 (there
+   R must move, the losses be finite and every batch be used), every
+   generate call launching ``in_relu`` twice and ``phase_head`` once;
+   (d) ``HTRTrainer``: one epoch of 10 steps at batch 32 on synthetic words
+   with ``marcal_augment``, teacher rate 0.5 (loss finite, R moved), ms a
+   step and the augmentation's host ms a batch; (e) ``entry()`` once
+   (images (8, 64, 216, 1), 2 + 1 launches), ``cli/bench --batch 256
+   --quick`` and ``cli/bench_kernels --batch 256``, each printing its JSON
+   lines.
 
 Each phase prints its seconds.  The last lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
@@ -77,7 +96,6 @@ import math
 import re
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -88,31 +106,8 @@ WORDS = ["the", "quick", "brown", "fox", "jumps", "over", "lazy", "dog"]
 NEW_ENCODERS = ("cnn", "vgg19", "inception_v3", "efficientnet_v2_l",
                 "dinov2_s", "dinov2_b", "dinov2_l", "dinov2_g")
 
-# (memory bytes/s, dense bf16 tensor FLOP/s, f32 FLOP/s outside the tensor
-# cores) from NVIDIA's H100 data sheet, by the part the card's name names
-CARD_PEAKS = {
-    "PCIe": (2.0e12, 756e12, 51e12),
-    "NVL": (3.9e12, 835e12, 60e12),
-    "SXM": (3.35e12, 989e12, 67e12),
-}
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def card_peaks(name: str):
-    for key in ("PCIe", "NVL"):
-        if key in name:
-            return key, CARD_PEAKS[key]
-    return "SXM", CARD_PEAKS["SXM"]
 
 
 def ptxas_info(build_log: str, kernel: str) -> dict:
@@ -404,88 +399,12 @@ def traced(torch, fn, reps: int, unprofiled_ms: float, what: str):
     return kernel_ms, idle, launches
 
 
-def phase_kernel_times(torch, F, peaks):
-    from affganwriting_torch.models.blocks import depth_to_space
-    from affganwriting_torch.ops.in_relu_cuda import in_relu, in_relu_plain
-    from affganwriting_torch.ops.phase_head_cuda import (
-        phase_head,
-        phase_head_plain,
-        strip_rows,
-    )
-    from affganwriting_torch.tools.timing import cuda_ms
+def phase_kernel_times(peaks):
+    """``cli/bench_kernels.py``'s rows: each kernel beside its plain
+    version, one library call and the card's bound."""
+    from affganwriting_torch.cli.bench_kernels import kernel_times
 
-    mem_rate, bf16_rate, f32_rate = peaks
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    dt = torch.bfloat16
-    out = {}
-    row = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "bytes": 0, "ops": 0, "stages": []}
-    for shape in ((256, 256, 16, 54), (256, 128, 32, 108)):
-        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
-        n = x.numel()
-        nbytes = 2 * n * x.element_size()
-        ops = 6 * n          # sum, square-add, subtract, scale, relu
-        bound = max(nbytes / mem_rate, ops / f32_rate) * 1e3
-        stage = {
-            "shape": list(shape),
-            "ms": cuda_ms(lambda: in_relu(x)),
-            "plain_ms": cuda_ms(lambda: in_relu_plain(x)),
-            "library_ms": cuda_ms(lambda: torch.relu(F.instance_norm(x))),
-            "bound_ms": bound,
-        }
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            row[k] += stage[k]
-        row["bytes"] += nbytes
-        row["ops"] += ops
-        row["stages"].append(stage)
-        log(f"  in_relu {shape} bf16: kernel {stage['ms']:.4f} ms, plain "
-            f"{stage['plain_ms']:.4f}, library {stage['library_ms']:.4f}, "
-            f"bound {bound:.4f} (bytes)")
-    row["bound_by"] = "bytes"
-    out["in_relu"] = row
-
-    def head_row(b):
-        c4, hp, wp = 256, 36, 112
-        h, w = hp - 4, wp - 4
-        xp = torch.relu(torch.randn((b, c4, hp, wp), generator=gen,
-                                    device="cuda")).to(dt)
-        kc = (torch.randn((c4, 100), generator=gen, device="cuda")
-              / (49 * 64) ** 0.5).to(dt)
-        bias4 = torch.randn(4, generator=gen, device="cuda") * 0.1
-        k4 = kc.view(c4, 25, 4).permute(2, 0, 1).reshape(4, c4, 5, 5) \
-            .contiguous()
-        bias_dt = bias4.to(dt)
-
-        def library():
-            y = torch.tanh(F.conv2d(xp, k4) + bias_dt.view(1, 4, 1, 1))
-            return depth_to_space(y)
-
-        nbytes = (xp.numel() + kc.numel() + b * 4 * h * w) \
-            * xp.element_size() + bias4.numel() * 4
-        ops = 2 * c4 * 100 * h * w * b
-        t_bytes, t_ops = nbytes / mem_rate * 1e3, ops / bf16_rate * 1e3
-        r = strip_rows(b, h, sms)
-        row = {
-            "ms": cuda_ms(lambda: phase_head(xp, kc, bias4)),
-            "plain_ms": cuda_ms(lambda: phase_head_plain(xp, kc, bias4)),
-            "library_ms": cuda_ms(library),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops, "shape": [b, c4, hp, wp],
-            "strip_rows": r,
-        }
-        log(f"  phase_head {(b, c4, hp, wp)} bf16, R = {r}: kernel "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
-            f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
-            f"({row['bound_by']}; bytes {t_bytes:.4f}, operations "
-            f"{t_ops:.4f})")
-        return row
-
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    row = head_row(256)
-    row["batch8"] = head_row(8)
-    out["phase_head"] = row
-    return out
+    return kernel_times(peaks, batch=256, log=log)
 
 
 def random_batch(torch, cfg, b: int, gen, device):
@@ -1236,6 +1155,273 @@ def phase_quality_report(torch, tmp: str, counts, zero):
     return res
 
 
+def phase_trocr_reference(torch):
+    """(a) TrOCR ``tiny`` on the card vs on the CPU, f32: one forward and
+    the gradient into the images."""
+    from affganwriting_torch.gen.inference import init_weights
+    from affganwriting_torch.models.recognizer.trocr import (
+        TrOCRArch,
+        TrOCRRecognizer,
+    )
+
+    cpu = init_weights(TrOCRRecognizer(TrOCRArch.tiny()), SEED)
+    card = TrOCRRecognizer(TrOCRArch.tiny()).cuda()
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(SEED)
+    img = (torch.rand(2, 1, 64, 216, generator=gen) * 2 - 1).detach()
+    labels = torch.randint(3, 55, (2, 12), generator=gen)
+    labels[:, 0] = 0
+    w = torch.randn(2, 11, 55, generator=gen)
+    out = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+        x = img.to(dev, copy=True).requires_grad_()
+        logits, _ = model(x, labels.to(dev))
+        (logits * w.to(dev)).sum().backward()
+        out[name] = (logits.detach().cpu(), x.grad.cpu())
+    d = (out["card"][0] - out["cpu"][0]).abs()
+    lerr = float(d.max())
+    within = bool((d <= 1e-4 * out["cpu"][0].abs().clamp_min(1.0)).all())
+    gerr = float((out["card"][1] - out["cpu"][1]).abs().max())
+    gscale = float(out["cpu"][1].abs().max())
+    log(f"  tiny TrOCR card vs CPU (f32): logits max|err| {lerr:.3g} (tol "
+        f"1e-4 of max(1, |CPU|)); image gradient max|err| {gerr:.3g} of max "
+        f"{gscale:.3g} (tol 1e-4 of it)")
+    if not (within and gerr <= 1e-4 * gscale and gscale > 0):
+        raise AssertionError("TrOCR on the card disagrees with the CPU")
+    return {"logits_max_abs_err": lerr, "grad_max_abs_err": gerr,
+            "grad_scale": gscale}
+
+
+def phase_trocr(torch, card: str, tmp: str, counts, zero):
+    """(b) ``train_word --recognizer trocr --trocr-preset base`` at
+    ``default_config()`` (TrOCR base, random weights, frozen; f32), batch
+    8: 3 warm-up and 5 timed merged steps, one eval step, one 64-word
+    request."""
+    from affganwriting_torch.cli import train_word
+    from affganwriting_torch.gen.inference import (
+        encode_labels,
+        make_generate_and_read_fn,
+    )
+    from affganwriting_torch.train.state import param_count
+
+    t0 = time.perf_counter()
+    trainer, _ = train_word.build_trainer([
+        "--recognizer", "trocr", "--trocr-preset", "base",
+        "--batch-size", "8", "--max-writers", "8", "--restart-rss-gb", "0",
+        "--logdir", f"{tmp}/trocr"])
+    cfg, state = trainer.config, trainer.state
+    if (cfg.recognizer, cfg.rec_frozen, cfg.trocr_preset) != \
+            ("trocr", True, "base") or state.rec.opt is not None:
+        raise AssertionError("train_word did not build a frozen TrOCR base")
+    counts_p = param_count(state)
+    log(f"  train_word --recognizer trocr --trocr-preset base built in "
+        f"{time.perf_counter() - t0:.1f} s; parameters {counts_p}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = random_batch(torch, cfg, 8, gen, "cuda")
+    before = snapshot(torch, state)
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    walls, losses = [], []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, metrics, _ = trainer.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    train_counts = counts()
+    peak = torch.cuda.max_memory_allocated()
+    bad = [(i, k) for i, m in enumerate(losses) for k, v in m.items()
+           if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite losses with TrOCR: {bad[:5]}")
+    after = snapshot(torch, state)
+    if any(not torch.equal(before["rec"][k], after["rec"][k])
+           for k in before["rec"]):
+        raise AssertionError("the frozen TrOCR moved")
+    if all(torch.equal(before["gen"][k], after["gen"][k])
+           for k in before["gen"]):
+        raise AssertionError("G did not move against the frozen TrOCR")
+    if train_counts != (0, 0, 0):
+        raise AssertionError(f"a train step launched a kernel: "
+                             f"{train_counts}")
+    step_ms = statistics.median(walls[3:]) * 1e3
+    log(f"  merged step with TrOCR base, batch 8: median {step_ms:.3f} ms "
+        f"over 5 (min {min(walls[3:]) * 1e3:.3f}, max "
+        f"{max(walls[3:]) * 1e3:.3f}) -> {8 / (step_ms / 1e3):.1f} words/s "
+        f"on {card}; peak memory {peak / 2**30:.3f} GiB; losses finite, "
+        f"TrOCR bit-unchanged, G moved; last losses {losses[-1]}")
+
+    zero()
+    em, _, _ = trainer.eval_step(state, {k: v for k, v in batch.items()
+                                         if k != "label_ch0"})
+    torch.cuda.synchronize()
+    eval_counts = counts()
+    if eval_counts != (4, 2, 0) or not all(
+            math.isfinite(float(v)) for v in em.values()):
+        raise AssertionError(f"eval step with TrOCR: launches "
+                             f"{eval_counts}, losses {em}")
+    log(f"  eval step: losses { {k: float(v) for k, v in em.items()} }, "
+        f"launches {eval_counts}")
+
+    run = make_generate_and_read_fn(
+        cfg, state.gen.model.state_dict(), state.rec.model.state_dict(),
+        seed=SEED)
+    style = torch.randn(1, cfg.img_height, cfg.img_width, cfg.style_stack,
+                        generator=gen, device="cuda")
+    labels = encode_labels((WORDS * 8)[:64], cfg.output_max_len)
+    run(style, labels)
+    req = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        zero()
+        images, ids = run(style, labels)
+        torch.cuda.synchronize()
+        req.append(time.perf_counter() - t)
+        req_counts = counts()
+    if req_counts != (2, 1, 0) or tuple(ids.shape) != (64, 11) or \
+            not bool(torch.isfinite(images.float()).all()):
+        raise AssertionError(f"TrOCR request: launches {req_counts}, ids "
+                             f"{tuple(ids.shape)}")
+    req_ms = statistics.median(req) * 1e3
+    log(f"  1 x 64-word request with TrOCR base: median {req_ms:.3f} ms "
+        f"over 5; launches a call {req_counts}")
+    trainer.logger.close()
+    return {"step_ms": step_ms, "words_per_s": 8 / (step_ms / 1e3),
+            "peak_gib": peak / 2**30, "param_count": counts_p,
+            "launches_8_train_steps": list(train_counts),
+            "launches_eval_step": list(eval_counts), "request_ms": req_ms,
+            "launches_request": list(req_counts)}
+
+
+def phase_teacher(torch, card: str, counts, zero):
+    """(c) ``run_teacher_phase`` at ``default_config()``, random weights,
+    over 4 batches of 8: the on-device TrOCR teacher (base) and
+    ``SelfTeacher`` (beam 3), each at ``conf_threshold`` 0.6 and 0.0."""
+    from affganwriting_torch.core.config import default_config
+    from affganwriting_torch.models.recognizer.trocr import TrOCRArch
+    from affganwriting_torch.train.state import init_state
+    from affganwriting_torch.train.teacher import (
+        DeviceTrOCRTeacher,
+        SelfTeacher,
+        run_teacher_phase,
+    )
+
+    cfg = default_config()
+    state = init_state(cfg, seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    batches = [random_batch(torch, cfg, 8, gen, "cuda") for _ in range(4)]
+    t0 = time.perf_counter()
+    teachers = {"trocr_base": DeviceTrOCRTeacher(
+                    cfg, arch=TrOCRArch.base_handwritten(), seed=SEED),
+                "self_beam3": SelfTeacher(cfg, state.rec.model, 3)}
+    log(f"  teachers built in {time.perf_counter() - t0:.1f} s")
+    out, per_call = {}, set()
+    for name, teacher in teachers.items():
+        for threshold in (0.6, 0.0):
+            before = snapshot(torch, state)["rec"]
+            zero()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, stats = run_teacher_phase(state, cfg, teacher, iter(batches),
+                                         gen, conf_threshold=threshold)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            calls = stats["used_batches"] + stats["skipped_small_batches"]
+            c = counts()
+            per_call.add(tuple(v // calls for v in c))
+            if calls != 4 or any(v % calls for v in c):
+                raise AssertionError(f"teacher phase: {calls} generate "
+                                     f"calls, launches {c}")
+            after = snapshot(torch, state)["rec"]
+            moved = any(not torch.equal(v, after[k])
+                        for k, v in before.items())
+            if threshold == 0.0 and not (
+                    stats["used_batches"] == 4 and moved and math.isfinite(
+                        stats["avg_pseudo_loss"])):
+                raise AssertionError(f"teacher phase at threshold 0 did not "
+                                     f"train R: {stats}, moved {moved}")
+            log(f"  {name} at conf_threshold {threshold}: {stats} in "
+                f"{seconds:.3f} s; R moved: {moved}; launches a generate "
+                f"call {tuple(v // calls for v in c)}")
+            out[f"{name}@{threshold}"] = dict(stats, seconds=seconds,
+                                              r_moved=moved)
+    if per_call != {(2, 1, 0)}:
+        raise AssertionError(f"a teacher-phase generate call launched "
+                             f"{per_call}, not in_relu 2 and phase_head 1")
+    return {"runs": out, "launches_generate_call": [2, 1, 0]}
+
+
+def phase_htr(torch, card: str):
+    """(d) ``HTRTrainer`` at ``default_config()``, batch 32: one epoch of 10
+    steps on synthetic words with ``marcal_augment``, teacher rate 0.5."""
+    import numpy as np
+
+    from affganwriting_torch.core.config import VOCAB, default_config
+    from affganwriting_torch.data.augment import marcal_augment
+    from affganwriting_torch.data.words import synthetic_word_image
+    from affganwriting_torch.train.htr_trainer import HTRTrainer
+
+    cfg = default_config()
+    trainer = HTRTrainer(cfg, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    words = ["the", "quick", "brown", "fox", "jumps", "over", "lazy", "dog",
+             "hello", "world", "recognizer", "word"]
+    batches, aug_s = [], []
+    for _ in range(10):
+        pick = [words[int(i)] for i in rng.integers(len(words), size=32)]
+        t = time.perf_counter()
+        img = np.stack([marcal_augment(
+            (synthetic_word_image(w, int(s)) + 1.0) * 0.5, rng) * 2.0 - 1.0
+            for w, s in zip(pick, rng.integers(500, size=32))])
+        aug_s.append(time.perf_counter() - t)
+        batches.append({"image": img[..., None].astype(np.float32),
+                        "labels": np.asarray([VOCAB.pad_label(
+                            w, cfg.output_max_len) for w in pick], np.int32)})
+    before = {k: v.clone() for k, v in trainer.rec.state_dict().items()}
+    trainer.train_epoch(batches[:1], epoch=0, total_epochs=2)  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m = trainer.train_epoch(batches, epoch=0, total_epochs=2)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / len(batches)
+    moved = any(not torch.equal(v, trainer.rec.state_dict()[k])
+                for k, v in before.items())
+    if not (math.isfinite(m["loss"]) and moved and m["teacher_rate"] == 0.5):
+        raise AssertionError(f"HTR epoch: {m}, R moved {moved}")
+    aug_ms = statistics.median(aug_s) * 1e3
+    log(f"  HTR epoch of 10 steps, batch 32, teacher rate 0.5: {m}; "
+        f"{ms:.3f} ms a step on {card} (the batches built beforehand); "
+        f"marcal_augment {aug_ms:.1f} ms a batch of 32 on the host")
+    return {"ms_per_step": ms, "augment_ms_per_batch": aug_ms,
+            "loss": m["loss"], "cer": m["cer"]}
+
+
+def phase_entry_and_benches(torch, counts, zero):
+    """(e) ``entry()``, ``cli/bench --batch 256 --quick`` and
+    ``cli/bench_kernels`` at batch 256."""
+    from affganwriting_torch.cli import bench, bench_kernels
+    from affganwriting_torch.entry import entry
+
+    fn, args = entry()
+    zero()
+    images = fn(*args)
+    torch.cuda.synchronize()
+    c = counts()
+    if tuple(images.shape) != (8, 64, 216, 1) or c != (2, 1, 0) or \
+            not bool(torch.isfinite(images.float()).all()):
+        raise AssertionError(f"entry(): {tuple(images.shape)}, launches {c}")
+    log(f"  entry(): images {tuple(images.shape)} {images.dtype}, launches "
+        f"{c}")
+    log("  cli/bench --batch 256 --quick:")
+    result = bench.main(["--batch", "256", "--quick"])
+    log("  cli/bench_kernels --batch 256:")
+    lines = bench_kernels.main(["--batch", "256"])
+    return {"entry_launches": list(c), "bench": result,
+            "bench_kernels": lines}
+
+
 def _host_parts(torch, trainer) -> dict:
     """Two host-side parts of a trainer epoch, timed alone on the card: one
     batch's upload (``to_device_batch`` of the numpy batch, median of 5)
@@ -1297,9 +1483,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke runs on the card",
               file=sys.stderr)
         return 2
-    import torch.nn.functional as F
-
     from affganwriting_torch.ops import cuda_build
+    from affganwriting_torch.tools.timing import card_peaks, nvidia_smi_line
 
     t_start = time.perf_counter()
 
@@ -1350,7 +1535,7 @@ def main() -> int:
     launches: dict[str, int] = {}
     main_path = timed("4", phase_main_path, torch, launches, smi)
     log("[5] kernel times at batch 256, bf16")
-    times = timed("5", phase_kernel_times, torch, F, peaks)
+    times = timed("5", phase_kernel_times, peaks)
 
     times["phase_head"].update({
         "route": "wgmma+tma",
@@ -1403,8 +1588,28 @@ def main() -> int:
                         zero)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    log("[9] TrOCR, the teacher phase, HTR, entry and benches")
+    log("[9a] tiny TrOCR card vs CPU, f32")
+    trocr_ref = timed("9a", phase_trocr_reference, torch)
+    tmp = tempfile.mkdtemp(prefix="phase9_", dir=root)
+    try:
+        log("[9b] train_word --recognizer trocr --trocr-preset base "
+            "(default_config, batch 8)")
+        trocr = timed("9b", phase_trocr, torch, smi, tmp, counts, zero)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("[9c] the teacher phase (default_config, 4 batches of 8)")
+    teacher = timed("9c", phase_teacher, torch, smi, counts, zero)
+    log("[9d] HTRTrainer (default_config, batch 32, 10 steps)")
+    htr = timed("9d", phase_htr, torch, smi)
+    log("[9e] entry(), cli/bench --batch 256 --quick, cli/bench_kernels")
+    benches = timed("9e", phase_entry_and_benches, torch, counts, zero)
+    seconds["9"] = sum(seconds[k] for k in ("9a", "9b", "9c", "9d", "9e"))
     for k, key in (("in_relu", 0), ("phase_head", 1)):
-        kernels[[r["name"] for r in kernels].index(k)]["detail"].update({
+        row = kernels[[r["name"] for r in kernels].index(k)]
+        row["launches_teacher_generate_call"] = \
+            teacher["launches_generate_call"][key]
+        row["detail"].update({
             "launches_trainer_eval_batch":
                 runtime["eval_launches_per_batch"][key],
             "launches_generate_word_call":
@@ -1412,12 +1617,16 @@ def main() -> int:
             "launches_quality_report_call": quality["launches"][key],
             "launches_encoder_generate_call": {
                 n: e["launches_generate_call"][key]
-                for n, e in encoders.items()}})
+                for n, e in encoders.items()},
+            "launches_trocr_eval_step": trocr["launches_eval_step"][key],
+            "launches_entry_call": benches["entry_launches"][key]})
     log(f"phase seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
     log(json.dumps({"main_path": main_path, "train_reference": train_ref,
                     "train": train, "trainer_runtime": runtime,
                     "eval_reference": eval_ref, "encoders": encoders,
-                    "quality_report": quality, "phase_s": seconds,
+                    "quality_report": quality, "trocr_reference": trocr_ref,
+                    "trocr": trocr, "teacher": teacher, "htr": htr,
+                    "benches": benches, "phase_s": seconds,
                     "build_s": build_s}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -53,10 +53,15 @@ def test_help(cli, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "auto"], "item 10"), (["--recognizer", "trocr"], "item 8"),
-    (["--trocr-preset", "tiny"], "item 8"),
-    (["--trocr-ckpt", "ckpt"], "item 8")])
+    (["--mesh", "auto"], "item 10"),
+    (["--trocr-ckpt", "ckpt"], "requires --recognizer trocr"),
+    (["--recognizer", "trocr", "--trocr-preset", "tiny", "--trocr-ckpt",
+      "ckpt"], "cannot load into --trocr-preset tiny"),
+    (["--recognizer", "trocr", "--trocr-ckpt", "no/such/dir"],
+     "not a readable local HF checkpoint directory")])
 def test_unported_flags_name_their_roadmap_item(flags, item):
+    """The refusals: ``--mesh`` names the ROADMAP item it waits for; the
+    TrOCR flags are refused by the JAX CLI's own rules."""
     with pytest.raises(SystemExit, match=item):
         train_word.main(flags + ["--device", "cpu"])
     if flags[0] == "--mesh":

@@ -1,0 +1,151 @@
+"""The port's entry point, its bench CLIs, the sweep and the job emitter,
+on the CPU.
+
+- ``entry(device="cpu")``: the JAX entry's example arguments exactly (the
+  same 8 words, the style stack from ``np.random.default_rng(0)``), and
+  one call at ``default_config()`` giving finite images (8, 64, 216, 1) in
+  [-1, 1];
+- ``cli/bench``: its flags, the one-JSON-line result shape of the JAX
+  bench, and ``--headline int8`` and the int8 stage refused naming ROADMAP
+  Queue 1 item 9 (without a card it raises: tests/test_torch_hygiene.py);
+- ``cli/bench_kernels``: its flags and the JSON lines of a result;
+- ``train/sweep.py``: the JAX package's trial configs, best trial and saved
+  study, exactly, for the same seed;
+- ``cli/emit_jobs``: the JAX package's scripts, byte for byte but for the
+  package name in the command.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)   # tier-1 runs six xdist workers
+
+
+def test_entry_builds_the_jax_entrys_arguments_and_runs_on_the_cpu():
+    from affganwriting_tpu.core.config import default_config as jdefault
+    from affganwriting_tpu.gen.inference import encode_labels as jencode
+    from affganwriting_torch.entry import WORDS, entry
+
+    fn, (style, labels) = entry(device="cpu")
+    cfg = jdefault()
+    want_style = np.asarray(np.random.default_rng(0).normal(
+        size=(1, cfg.img_height, cfg.img_width, cfg.style_stack)),
+        np.float32)
+    assert WORDS == ["the", "quick", "brown", "fox", "jumps", "over",
+                     "lazy", "dog"]
+    np.testing.assert_array_equal(style, want_style)
+    np.testing.assert_array_equal(labels,
+                                  jencode(WORDS, cfg.output_max_len))
+    images = fn(style, labels)
+    assert tuple(images.shape) == (8, 64, 216, 1)
+    img = images.float()
+    assert bool(torch.isfinite(img).all()) and float(img.abs().max()) <= 1
+
+
+def test_bench_flags_and_int8_refusal(capsys):
+    from affganwriting_torch.cli import bench
+
+    with pytest.raises(SystemExit) as e:
+        bench.main(["--help"])
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    assert "--batch" in out and "--quick" in out and "--headline" in out
+    with pytest.raises(SystemExit, match="Queue 1 item 9"):
+        bench.main(["--headline", "int8", "--batch", "8"])
+    with pytest.raises(SystemExit, match="Queue 1 item 9"):
+        bench.run_gen_read_int8(256)
+    with pytest.raises(SystemExit) as e:
+        bench.main(["--headline", "fp8"])
+    assert e.value.code == 2
+
+
+def test_bench_prints_the_jax_benchs_result_shape(capsys):
+    from affganwriting_torch.cli import bench
+
+    extra = {"gen_read_batch": 256, "gen_read_bf16_imgs_per_sec": 4000.04}
+    result = bench._emit("generate+recognize 64x216 word images/sec/chip",
+                         4000.04, extra)
+    line = capsys.readouterr().out
+    assert line.count("\n") == 1 and json.loads(line) == result
+    assert result == {
+        "metric": "generate+recognize 64x216 word images/sec/chip",
+        "value": 4000.0, "unit": "images/sec/chip", "vs_baseline": 0.8,
+        "extra": extra}
+
+
+def test_bench_kernels_flags_and_lines(capsys):
+    from affganwriting_torch.cli import bench_kernels
+
+    with pytest.raises(SystemExit) as e:
+        bench_kernels.main(["--help"])
+    assert e.value.code == 0
+    assert "--batch" in capsys.readouterr().out
+
+    def row(shape):
+        return {"shape": shape, "ms": 1.0, "plain_ms": 2.0,
+                "library_ms": 3.0, "bound_ms": 0.5, "bound_by": "bytes"}
+
+    times = {"in_relu": {"stages": [row([4, 256, 16, 54]),
+                                    row([4, 128, 32, 108])]},
+             "phase_head": dict(row([4, 256, 36, 112]),
+                                batch8=dict(row([8, 256, 36, 112]),
+                                            bound_by="operations"))}
+    lines = bench_kernels.json_lines(times, "card")
+    assert [(r["kernel"], r["shape"][0], r["bound_by"]) for r in lines] == [
+        ("in_relu", 4, "bytes"), ("in_relu", 4, "bytes"),
+        ("phase_head", 4, "bytes"), ("phase_head", 8, "operations")]
+    for r in lines:
+        assert set(r) == {"kernel", "shape", "dtype", "ms", "plain_ms",
+                          "library_ms", "bound_ms", "bound_by", "device"}
+        json.dumps(r)
+
+
+def test_sweep_matches_jax(tmp_path):
+    from affganwriting_tpu.core.config import default_config as jdefault
+    from affganwriting_tpu.train import sweep as jsweep
+    from affganwriting_torch.core.config import default_config
+    from affganwriting_torch.train import sweep
+
+    for seed in (0, 3):
+        ours, theirs = sweep.Study(default_config(), seed=seed), \
+            jsweep.Study(jdefault(), seed=seed)
+        for i in range(4):
+            a, b = ours.suggest(), theirs.suggest()
+            assert a.to_json() == b.to_json()
+            ours.report(float(i % 3))
+            theirs.report(float(i % 3))
+        assert ours.best == theirs.best
+        ours.save(str(tmp_path / "ours.json"))
+        theirs.save(str(tmp_path / "theirs.json"))
+        assert (tmp_path / "ours.json").read_text() == \
+            (tmp_path / "theirs.json").read_text()
+    space = {"lr_gen": sweep.LogUniform(1e-4, 1e-2)}
+    got = sweep.Study(default_config(), space, seed=5).run(
+        lambda c: c.lr_gen, 3)
+    want = jsweep.Study(jdefault(), {"lr_gen": jsweep.LogUniform(1e-4, 1e-2)},
+                        seed=5).run(lambda c: c.lr_gen, 3)
+    assert got == want
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--split", "train", "--shard", "3", "--writers-per-job", "5",
+         "--corpus", "in_vocab", "--ckpt-name", "latest"]])
+def test_emit_jobs_matches_jax(tmp_path, flags, capsys):
+    from affganwriting_tpu.cli import emit_jobs as jemit
+    from affganwriting_torch.cli import emit_jobs
+
+    common = ["--ckpt", "runs/x/ckpt", "--gen-out", "runs/gen"] + flags
+    ours = emit_jobs.main(common + ["--out", str(tmp_path / "ours")])
+    theirs = jemit.main(common + ["--out", str(tmp_path / "theirs")])
+    assert [p.split("/")[-1] for p in ours] == \
+        [p.split("/")[-1] for p in theirs]
+    assert len(ours) == (3 if flags else 1)
+    for a, b in zip(ours, theirs):
+        got, want = open(a).read(), open(b).read()
+        assert "affganwriting_tpu" not in got
+        assert got == want.replace("affganwriting_tpu.cli",
+                                   "affganwriting_torch.cli")
+        assert got.count("--writers") >= 1

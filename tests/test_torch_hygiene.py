@@ -53,24 +53,42 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
     )
     from test_torch_support import small_torch_config
 
+    from affganwriting_torch.cli import bench, bench_kernels
+    from affganwriting_torch.entry import entry
+    from affganwriting_torch.train.htr_trainer import HTRTrainer
+    from affganwriting_torch.train.teacher import DeviceTrOCRTeacher
+
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
-    for fn in (build_models, build_generator, build_recognizer,
-               make_generate_fn, make_generate_and_read_fn, init_state,
-               make_phased_train_step, make_train_step, make_eval_step):
+    trocr = small_torch_config(recognizer="trocr", rec_frozen=True)
+    for fn, cfg in [(fn, small_torch_config()) for fn in (
+            build_models, build_generator, build_recognizer,
+            make_generate_fn, make_generate_and_read_fn, init_state,
+            make_phased_train_step, make_train_step, make_eval_step,
+            HTRTrainer, DeviceTrOCRTeacher)] + [
+            (build_recognizer, trocr), (init_state, trocr)]:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            fn(small_torch_config())
+            fn(cfg)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            fn(small_torch_config(), device="cuda")
+            fn(cfg, device="cuda")
+    for run in (entry, lambda: entry(device="cuda"),
+                lambda: bench.main(["--batch", "8", "--quick"]),
+                lambda: bench_kernels.main(["--batch", "8"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
 
 
 def test_trainer_and_clis_need_a_card_or_an_explicit_cpu(tmp_path,
                                                          monkeypatch):
-    """The trainer, ``train_word``'s builder and the other CLIs raise
-    before they build or write anything."""
+    """The trainer, ``train_word``'s builder and the other CLIs (the
+    teacher phase's two and ``train_htr`` among them) raise before they
+    build or write anything."""
     from affganwriting_torch.cli import (
         generate_word,
         inspect_ckpt,
+        teacher_check,
+        teacher_phase,
+        train_htr,
         train_word,
     )
     from affganwriting_torch.train.loop import WordGanTrainer
@@ -83,17 +101,26 @@ def test_trainer_and_clis_need_a_card_or_an_explicit_cpu(tmp_path,
             WordGanTrainer(small_torch_config(), [], logdir=str(tmp_path),
                            **kw)
     assert not (tmp_path / "ckpt").exists()
-    monkeypatch.setattr(train_word, "default_config", small_torch_config)
+    for cli in (train_word, teacher_check, train_htr):
+        monkeypatch.setattr(cli, "default_config", small_torch_config)
     for extra in ([], ["--device", "cuda"]):
         for run in (
                 lambda: train_word.build_trainer(
                     ["--logdir", str(tmp_path / "run")] + extra),
                 lambda: generate_word.main(["--out", str(tmp_path / "gen")]
                                            + extra),
-                lambda: inspect_ckpt.main([str(tmp_path / "ck")] + extra)):
+                lambda: inspect_ckpt.main([str(tmp_path / "ck")] + extra),
+                lambda: teacher_phase.main(
+                    ["--ckpt", str(tmp_path / "ck"), "--out",
+                     str(tmp_path / "tp")] + extra),
+                lambda: teacher_check.main(["--out", str(tmp_path / "tc")]
+                                           + extra),
+                lambda: train_htr.main(["--logdir", str(tmp_path / "htr")]
+                                       + extra)):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 run()
-    assert not any((tmp_path / d).exists() for d in ("run", "gen", "ck"))
+    assert not any((tmp_path / d).exists()
+                   for d in ("run", "gen", "ck", "tp", "tc", "htr"))
 
 
 def test_fid_and_evaluation_clis_need_a_card_or_an_explicit_cpu(tmp_path):

@@ -10,6 +10,7 @@ biases and unit statistics.  Inputs are numpy arrays handed to both sides.
 from __future__ import annotations
 
 import contextlib
+import os
 
 import jax
 import numpy as np
@@ -96,7 +97,8 @@ def jax_word_gan_state(jcfg, batch, rec_dropout: float = 0.0):
     from affganwriting_tpu.train.state import build_models, make_optimizers
 
     gen, dis, cla, rec = build_models(jcfg)
-    rec = rec.clone(dropout=rec_dropout)
+    if hasattr(rec, "dropout"):          # the seq2seq R; TrOCR has none
+        rec = rec.clone(dropout=rec_dropout)
     style = batch["style_imgs"][:1]
     img, labels = style[..., :1], batch["label_xt"][:1]
     variables = {"gen": random_variables(gen, style, labels, seed=1),
@@ -162,3 +164,87 @@ def close(got, want, tol: float, what: str = "") -> None:
                  for t in (got, want))
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=tol, atol=tol, err_msg=what)
+
+
+TINY_TROCR = dict(enc_hidden=32, enc_layers=2, enc_heads=2, enc_mlp=64,
+                  dec_hidden=32, dec_layers=2, dec_heads=2, dec_ffn=64,
+                  vocab_tro=384, max_positions=64)
+
+
+def tiny_hf_trocr(seed: int = 0):
+    """A HF ``VisionEncoderDecoderModel`` (ViT encoder, TrOCR decoder) at
+    ``TrOCRArch.tiny()``'s dimensions, in eval mode, with every parameter
+    drawn from ``seed`` (LayerNorm scales near 1, biases small), built from
+    configs here: nothing is fetched."""
+    os.environ.setdefault("USE_TF", "0")    # transformers alone, no TF
+    from transformers import (
+        TrOCRConfig,
+        VisionEncoderDecoderConfig,
+        VisionEncoderDecoderModel,
+        ViTConfig,
+    )
+
+    t = TINY_TROCR
+    enc = ViTConfig(hidden_size=t["enc_hidden"],
+                    num_hidden_layers=t["enc_layers"],
+                    num_attention_heads=t["enc_heads"],
+                    intermediate_size=t["enc_mlp"], image_size=384,
+                    patch_size=16, hidden_act="gelu", qkv_bias=True)
+    dec = TrOCRConfig(vocab_size=t["vocab_tro"], d_model=t["dec_hidden"],
+                      decoder_layers=t["dec_layers"],
+                      decoder_attention_heads=t["dec_heads"],
+                      decoder_ffn_dim=t["dec_ffn"],
+                      activation_function="gelu",
+                      max_position_embeddings=t["max_positions"],
+                      layernorm_embedding=True, scale_embedding=False,
+                      use_learned_position_embeddings=True,
+                      tie_word_embeddings=False, dropout=0.0,
+                      attention_dropout=0.0, activation_dropout=0.0,
+                      decoder_start_token_id=0, bos_token_id=0,
+                      pad_token_id=1, eos_token_id=2)
+    cfg = VisionEncoderDecoderConfig.from_encoder_decoder_configs(enc, dec)
+    cfg.decoder_start_token_id, cfg.pad_token_id, cfg.eos_token_id = 0, 1, 2
+    model = VisionEncoderDecoderModel(config=cfg).eval()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() >= 2:
+                p.copy_(torch.randn(p.shape, generator=gen)
+                        / p[0].numel() ** 0.5)
+            elif name.endswith("weight"):
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=gen))
+            else:
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def save_tiny_trocr(path, seed: int = 0, processor: bool = True):
+    """``tiny_hf_trocr(seed)`` saved to the directory ``path``, with a
+    ``TrOCRProcessor`` (a ViT image processor at 384 and a byte-level BPE
+    tokenizer whose vocabulary is the specials and the 52 letters, one
+    token each) unless ``processor`` is False.  Returns the model."""
+    import json
+    import string
+
+    from transformers import RobertaTokenizer, TrOCRProcessor
+    from transformers import ViTImageProcessor
+
+    model = tiny_hf_trocr(seed)
+    model.save_pretrained(path)
+    if processor:
+        letters = string.ascii_lowercase + string.ascii_uppercase
+        vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3, "\u0120": 4,
+                 ".": 5, ",": 6, "0": 7, "1": 8, "2": 9}
+        vocab.update({c: 10 + i for i, c in enumerate(letters)})
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "vocab.json"), "w") as f:
+            json.dump(vocab, f)
+        with open(os.path.join(path, "merges.txt"), "w") as f:
+            f.write("#version: 0.2\n")
+        tok = RobertaTokenizer(os.path.join(path, "vocab.json"),
+                               os.path.join(path, "merges.txt"))
+        images = ViTImageProcessor(size={"height": 384, "width": 384},
+                                   image_mean=[0.5] * 3, image_std=[0.5] * 3)
+        TrOCRProcessor(image_processor=images,
+                       tokenizer=tok).save_pretrained(path)
+    return model

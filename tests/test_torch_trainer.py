@@ -12,7 +12,8 @@ Limits:
   still and R at 1e-5 (``EPOCH_CONFIG`` says why); the post-loop pass over
   the JAX trainer's step outputs exactly equal, every step's losses and the
   epoch means within ``LOSS_TOL`` (``l_rec`` only at a step where none of
-  R's ids on the fakes is near a tie), R's greedy ids equal wherever they
+  R's ids on the fakes is near a tie, ``l_rec_tr`` only at a step where
+  R's ids on the real words are equal), R's greedy ids equal wherever they
   are not within twice the packages' logit difference of a tie, and the
   CERs apart by at most one edit per id that is;
 - SIGINT inside ``fit``, even in the middle of a step, saves the state
@@ -314,17 +315,28 @@ def test_one_epoch_matches_the_jax_trainer(tmp_path):
 
     - the post-loop pass, exactly: the port's reduction of the JAX
       trainer's step outputs gives the JAX trainer's epoch means and CERs;
-    - every step's losses and the epoch means within ``LOSS_TOL``;
+    - every step's losses and the epoch means within ``LOSS_TOL``, except
+      as below;
     - R's greedy ids equal wherever they are not within twice the
       packages' logit difference of a tie, the CERs apart by at most one
-      edit per id that is.  On the real words (teacher-forced) most ids
-      must be clear of a tie (measured: 1-2 of 56 are not).  On the fakes
-      about half are not (55-76 of 112 in three runs): the JAX package's
-      f32 fakes lie ~1e-2 from the port's f64 ones (the port's ~1e-3), R's
+      edit per id that is (counted in whole edits).  R free-runs on the
+      real words as on the fakes.  On the real words most ids must be
+      clear of a tie (measured: 0-13 of 56 a step are not).  On the fakes about
+      half are not (55-76 of 112 in three runs): the JAX package's f32
+      fakes lie ~1e-2 from the port's f64 ones (the port's ~1e-3), R's
       logits on them (random weights) have top-2 margins of ~0.1, and a
-      flip feeds every later step of the free-running decode.  That is why parity.py holds ``w_rec`` at 0,
-      and ``l_rec``, R's loss on the fakes, is compared only at a step
-      with no id near a tie."""
+      flip feeds every later step of the free-running decode.  That is why
+      parity.py holds ``w_rec`` at 0, and why the two losses that read R's
+      greedy ids are compared only where those ids cannot have moved them:
+      ``l_rec``, R's loss on the fakes, only at a step with no id on the
+      fakes near a tie, and ``l_rec_tr``, R's loss on the real words, only
+      at a step where the packages' ids on the real words are equal.  Over
+      42 string-hash seeds (the synthetic words, and so the batches, vary
+      with it), ``l_rec_tr`` stayed within 2.7e-4 of itself at every step
+      with equal ids, and moved by up to 8.1e-3 (``LOSS_TOL`` is 2e-3) at
+      steps where 2-5 ids differed: the JAX package's f32 logits on the
+      real words, not the port's, lie off the port's f64 ones there.  The
+      epoch means follow their steps."""
     jcfg = small_jax_config(**EPOCH_CONFIG)
     tcfg = small_torch_config(**EPOCH_CONFIG)
     from affganwriting_tpu.data.words import WordStyleDataset as JDataset
@@ -351,51 +363,69 @@ def test_one_epoch_matches_the_jax_trainer(tmp_path):
     port.state = init_state(tcfg, "cpu", weights=weights, rec_dropout=0.0)
     port.train_step = _recording(port.train_step, seen := [])
     got = port.train_epoch(0)
-    assert port.state.step == len(seen) == len(jseen) == 2
-    for (_, _, b), (_, _, jb) in zip(seen, jseen):
-        assert b.keys() == jb.keys()
+    assert port.state.step == len(seen) == len(jseen) == 2, \
+        ("steps", port.state.step, len(seen), len(jseen))
+    for i, ((_, _, b), (_, _, jb)) in enumerate(zip(seen, jseen)):
+        assert b.keys() == jb.keys(), ("batch keys", i, b.keys(), jb.keys())
         for k in b:
-            np.testing.assert_array_equal(b[k], jb[k], k)
+            np.testing.assert_array_equal(b[k], jb[k], ("batch", i, k))
 
     same = port._reduce(
         [({k: torch.from_numpy(np.array(v)) for k, v in m.items()},
           {key: (torch.from_numpy(np.array(ext[lk])), b[label])
            for key, (lk, label) in CER_KEYS.items()})
          for m, ext, b in jseen], len(jseen), tuple(CER_KEYS))
-    assert same == {k: want[k] for k in same}
+    for k in same:
+        assert same[k] == want[k], ("post-loop pass", k, same[k], want[k])
 
-    ties, n_ids = {}, {}
+    ties, flips, n_ids = {}, {}, {}
     for key, (lk, label) in CER_KEYS.items():
-        ties[key], n_ids[key], gt_len = [], 0, 0
+        ties[key], flips[key], n_ids[key], gt_len = [], [], 0, 0
         for i, ((_, ext, b), (_, jext, _)) in enumerate(zip(seen, jseen)):
             a, w = ext[lk].numpy(), np.asarray(jext[lk])
             top2 = np.sort(w, -1)[..., -2:]
             clear = top2[..., 1] - top2[..., 0] > 2 * np.abs(a - w).max(-1)
             np.testing.assert_array_equal(a.argmax(-1)[clear],
-                                          w.argmax(-1)[clear], (i, key))
+                                          w.argmax(-1)[clear],
+                                          ("ids clear of a tie", i, key))
             ties[key].append(int((~clear).sum()))
+            flips[key].append(int((a.argmax(-1) != w.argmax(-1)).sum()))
             n_ids[key] += clear.size
             gt_len += int((b[label] >= 3).sum())
-        assert abs(got[key] - want[key]) <= 100 * sum(ties[key]) / gt_len, \
-            (key, got[key], want[key], ties[key])
-    print(f"R's ids near a tie, per step, of {n_ids}: {ties}")
+        # CER = 100 * edits / gt_len: compare the edits, which are whole
+        # numbers (the two quotients can differ by an ulp more than the
+        # bound's own quotient)
+        edits = [round(c * gt_len / 100) for c in (got[key], want[key])]
+        assert abs(edits[0] - edits[1]) <= sum(ties[key]), \
+            ("epoch CER edits", key, got[key], want[key], edits, ties[key])
+    print(f"R's ids near a tie, per step, of {n_ids}: {ties}; "
+          f"ids that differ: {flips}")
     assert sum(ties["cer_tr"]) <= n_ids["cer_tr"] // 2, (ties, n_ids)
 
     losses = {k for k in want if k.startswith("l_")}
-    assert losses == {k for k in got if k.startswith("l_")}
+    assert losses == {k for k in got if k.startswith("l_")}, \
+        ("loss keys", losses, got.keys())
+
+    def moved_by_ids(steps) -> set:
+        """The losses that R's differing greedy ids may have moved."""
+        out = set()
+        if any(ties["cer_te"][i] + ties["cer_te2"][i] for i in steps):
+            out.add("l_rec")
+        if any(flips["cer_tr"][i] for i in steps):
+            out.add("l_rec_tr")
+        return out
+
     for i, ((m, _, _), (jm, _, _)) in enumerate(zip(seen, jseen)):
-        tied = ties["cer_te"][i] + ties["cer_te2"][i]
-        for k in sorted(losses - ({"l_rec"} if tied else set())):
-            _close_loss(float(m[k]), float(jm[k]), (i, k))
-    tied = sum(ties["cer_te"]) + sum(ties["cer_te2"])
-    for k in sorted(losses - ({"l_rec"} if tied else set())):
-        _close_loss(got[k], want[k], k)
+        for k in sorted(losses - moved_by_ids([i])):
+            _close_loss(float(m[k]), float(jm[k]), ("step", i, k))
+    for k in sorted(losses - moved_by_ids(range(len(seen)))):
+        _close_loss(got[k], want[k], ("epoch mean", k))
 
 
 def _close_loss(got: float, want: float, where) -> None:
     assert np.isfinite(got), where
     assert abs(got - want) <= parity.LOSS_TOL * max(1, abs(want)), \
-        (where, got, want)
+        (where, "port", got, "jax", want, "tol", parity.LOSS_TOL)
 
 
 def _recording(step, seen):
