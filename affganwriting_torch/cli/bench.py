@@ -13,6 +13,9 @@ of ``--batch`` (default 2048, 1024, 256) that runs:
   ``torch.cuda.synchronize()`` at the end), streaming with every image
   copied to the host (``+fetch``), and per call (synchronized, median);
 - ``gen_only``: G alone, streaming and per call;
+- ``gen_read_int8``: the w8a8 serving mode (``gen/inference.py:
+  make_generate_and_read_quant_fn(quant_gen="static")``: R's VGG trunk and
+  G's decoder convs in int8, calibrated on one generated batch), streaming;
 - the merged train step (``train/step.py``) at batch 256, 64 or 8, the first
   that runs: 10 steps streamed, then per step.
 
@@ -21,9 +24,11 @@ of ``--batch`` (default 2048, 1024, 256) that runs:
 as one JSON line, ``{"metric", "value", "unit", "vs_baseline", "extra"}``,
 whose ``value`` (the streaming ``gen_read`` rate) does not change after
 the first; ``vs_baseline`` is against the 5,000 images a second target of
-``BASELINE.md``.  ``--quick`` stops after ``gen_read``.  The w8a8 serving
-mode (``--headline int8``) waits for ROADMAP Queue 1 item 9.  Needs the
-card.
+``BASELINE.md``.  ``--headline`` picks the stage that runs first and gives
+``value``: ``bf16`` (the default until the int8 mode's CER gate,
+``tools/ab_int8_cer.py``, has passed on trained weights) or ``int8``.
+``--quick`` stops after the headline stages (``gen_read``, and
+``gen_read_int8`` with ``--headline int8``).  Needs the card.
 """
 
 from __future__ import annotations
@@ -36,9 +41,7 @@ import time
 
 N_STREAM = 30
 TARGET = 5000.0
-INT8_REFUSAL = ("the w8a8 serving mode (--headline int8, the int8 stage) "
-                "waits for ROADMAP Queue 1 item 9 (quantized serving); "
-                "run --headline bf16")
+INT8_MODE = "w8a8: R trunk + static G"
 _T0 = time.perf_counter()
 
 
@@ -134,7 +137,27 @@ def run_gen_read(batch: int) -> dict:
 
 
 def run_gen_read_int8(batch: int) -> dict:
-    raise SystemExit(INT8_REFUSAL)
+    """The w8a8 serving mode, as the JAX bench runs it: R's trunk in int8
+    and G's decoder convs in static int8, both calibrated on one
+    generated batch (not timed), then streaming."""
+    import torch
+
+    from affganwriting_torch.gen.inference import (
+        make_generate_and_read_quant_fn,
+    )
+
+    cfg, style, labels = _setup(batch)
+    fn = make_generate_and_read_quant_fn(cfg, quant_gen="static", seed=0)
+    fn.calibrate(style, labels)
+    styles = [style + i * 1e-3 for i in range(N_STREAM)]
+    fn(styles[0], labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [fn(s, labels) for s in styles]
+    torch.cuda.synchronize()
+    stream = N_STREAM * batch / (time.perf_counter() - t0)
+    del outs
+    return {"stream": stream}
 
 
 def run_gen_only(batch: int) -> dict:
@@ -220,11 +243,9 @@ def main(argv=None):
                    help="one batch size (default: 2048, 1024, 256, the "
                         "first that runs)")
     p.add_argument("--quick", action="store_true",
-                   help="the headline stage only")
+                   help="the headline stages only")
     p.add_argument("--headline", default="bf16", choices=("bf16", "int8"))
     args = p.parse_args(argv)
-    if args.headline == "int8":
-        raise SystemExit(INT8_REFUSAL)
 
     from affganwriting_torch.gen.inference import resolve_device
     from affganwriting_torch.tools.timing import nvidia_smi_line
@@ -235,20 +256,40 @@ def main(argv=None):
              "fetch_floor_ms": round(fetch_floor_ms(), 4),
              "n_stream": N_STREAM}
     metric = "generate+recognize 64x216 word images/sec/chip"
+    headline, result = None, None
+
+    def int8_stage():
+        int8, b_q = _try(run_gen_read_int8, batches)
+        if int8 is not None:
+            extra.update({
+                "gen_read_int8_imgs_per_sec": round(int8["stream"], 1),
+                "gen_read_int8_batch": b_q, "gen_read_int8_mode": INT8_MODE})
+        return int8
+
+    # the headline's stage first, so the first line already carries it
+    if args.headline == "int8":
+        int8 = int8_stage()
+        if int8 is not None:
+            headline = int8["stream"]
+            metric += " (w8a8 serving mode)"
+            result = _emit(metric, headline, extra)
     res, b_used = _try(run_gen_read, batches)
-    if res is None:
+    if res is not None:
+        extra.update({
+            "gen_read_batch": b_used,
+            "gen_read_bf16_imgs_per_sec": round(res["stream"], 1),
+            "gen_read_fetch_imgs_per_sec": round(res["fetch_stream"], 1),
+            "gen_read_fetch_mb_per_sec": round(res["fetch_mb_per_sec"], 1),
+            "gen_read_percall_imgs_per_sec": round(res["percall"], 1)})
+        if headline is None:
+            headline = res["stream"]
+        result = _emit(metric, headline, extra)
+    if headline is None:
         raise SystemExit("every headline batch size failed")
-    headline = res["stream"]
-    extra.update({
-        "gen_read_batch": b_used,
-        "gen_read_bf16_imgs_per_sec": round(res["stream"], 1),
-        "gen_read_fetch_imgs_per_sec": round(res["fetch_stream"], 1),
-        "gen_read_fetch_mb_per_sec": round(res["fetch_mb_per_sec"], 1),
-        "gen_read_percall_imgs_per_sec": round(res["percall"], 1),
-        "gen_read_int8": INT8_REFUSAL})
-    result = _emit(metric, headline, extra)
     if args.quick:
         return result
+    if args.headline != "int8" and int8_stage() is not None:
+        result = _emit(metric, headline, extra)
     gen_only, b_g = _try(run_gen_only, batches)
     if gen_only is not None:
         extra.update({

@@ -1,12 +1,14 @@
-"""Batched, deterministic generate-and-recognize.
+"""Batched, deterministic generate-and-recognize, in bf16 or w8a8.
 
-Port of ``affganwriting_tpu/gen/inference.py:26-110`` and of
+Port of ``affganwriting_tpu/gen/inference.py:26-205`` and of
 ``train/state.py:build_models`` for the serving pair (G, R: the seq2seq
 recognizer or the TrOCR drop-in, ``new_recognizer``).  The
 style stack is encoded once and a batch of words is generated, then read
 back by R with greedy decoding.  Public layouts are the JAX package's: style
 stacks (S, H, W, 50), labels (B, T), images (B, H, W, 1), greedy ids
-(B, T - 1).
+(B, T - 1).  The w8a8 serving mode (``make_generate_and_read_quant_fn``)
+reads the images with R's VGG trunk in int8 and can run G's decoder convs
+in int8 too (``ops/quant.py``).
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``;
 with no card and no such request they raise.
@@ -21,6 +23,11 @@ from torch import nn
 from affganwriting_torch.core.config import VOCAB, WordGanConfig
 from affganwriting_torch.models.generator import Generator
 from affganwriting_torch.models.recognizer.seq2seq import Recognizer
+from affganwriting_torch.ops.quant import (
+    prepare_vgg_quant,
+    qparams_to,
+    vgg_quant_apply,
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -178,4 +185,110 @@ def make_generate_and_read_fn(config: WordGanConfig, gen_state=None,
 
     run.run_gen, run.run_rec = run_gen, run_rec
     run.gen, run.rec = run_gen.gen, rec
+    return run
+
+
+def load_gen_quant(gen: Generator, amaxes) -> None:
+    """Set G's int8 sites' calibrated ``amax`` from {site path: value}
+    (``calibrate_gen_quant``'s result, or ``utils/from_flax.
+    gen_quant_from_flax``'s); every site must be given."""
+    sites = gen.dec.quant_sites()
+    if set(amaxes) != set(sites):
+        raise ValueError(f"quant sites {sorted(amaxes)} != G's "
+                         f"{sorted(sites)}")
+    with torch.no_grad():
+        for k, site in sites.items():
+            site.amax.copy_(torch.as_tensor(amaxes[k], dtype=torch.float32))
+
+
+@torch.no_grad()
+def calibrate_gen_quant(gen: Generator, style_stack, labels,
+                        device) -> dict[str, torch.Tensor]:
+    """Record the static int8 mode's per-site activation ``amax`` (JAX
+    ``calibrate_gen_quant``): G's decoder in ``calib`` mode (its float
+    path) over one representative (style, labels) batch, from zero.  The
+    sites keep the values; returns them as {site path: amax}."""
+    sites = gen.dec.quant_sites()
+    for site in sites.values():
+        site.amax.zero_()
+    gen.dec.set_quant_mode("calib")
+    try:
+        generate_images(gen, style_stack, labels, device)
+    finally:
+        gen.dec.set_quant_mode(None)
+    return {k: site.amax.clone() for k, site in sites.items()}
+
+
+def gen_fn_in_mode(gen: Generator, mode: str | None, device):
+    """``run_gen(style_stack, labels) -> images`` with ``gen``'s decoder
+    convs in quant ``mode`` (None: the float path) for the call."""
+    @torch.inference_mode()
+    def run_gen(style_stack, labels):
+        gen.dec.set_quant_mode(mode)
+        try:
+            return generate_images(gen, style_stack, labels, device)
+        finally:
+            gen.dec.set_quant_mode(None)
+
+    return run_gen
+
+
+def make_generate_and_read_quant_fn(config: WordGanConfig, gen_state=None,
+                                    rec_state=None, *,
+                                    quant_gen: bool | str = False,
+                                    qparams=None, gen_quant=None,
+                                    device=None, seed: int = 0):
+    """The generate-and-read pipeline in the w8a8 serving mode (JAX
+    ``make_generate_and_read_quant_fn``), as the same two programs:
+
+    - ``run.run_rec`` reads the images with R's VGG trunk in int8
+      (``vgg_quant_apply`` at ``run.qparams``, features in bf16 as in the
+      JAX package) and R's float tail (``Recognizer.read_features``);
+    - ``run.run_gen`` is G in the float path, or with ``quant_gen`` its
+      decoder convs in int8: ``"dynamic"`` (or True) per-sample scales,
+      ``"static"`` the calibrated ``amax`` of each site.
+
+    ``qparams`` (``prepare_vgg_quant``'s) and ``gen_quant`` (site ``amax``,
+    ``load_gen_quant``) may be given; else ``run.calibrate(style_stack,
+    labels)`` computes both from one batch as the JAX bench does: R's from
+    the float pipeline's images, G's by ``calibrate_gen_quant``.  ``run(
+    style_stack, labels) -> (images (B, H, W, 1), greedy ids (B, T - 1))``;
+    ``run.gen``/``run.rec`` are the models, ``run.base`` the float
+    pipeline on the same models."""
+    dev = resolve_device(device)
+    base = make_generate_and_read_fn(config, gen_state, rec_state,
+                                     device=dev, seed=seed)
+    gen, rec = base.gen, base.rec
+    mode = "dynamic" if quant_gen is True else (quant_gen or None)
+    if mode not in (None, "dynamic", "static"):
+        raise ValueError(f"quant_gen must be False, True, 'dynamic' or "
+                         f"'static', not {quant_gen!r}")
+    if gen_quant is not None:
+        load_gen_quant(gen, gen_quant)
+
+    run_gen = gen_fn_in_mode(gen, mode, dev)
+
+    @torch.inference_mode()
+    def run_rec(images, labels):
+        if run.qparams is None:
+            raise RuntimeError("no int8 trunk parameters: pass qparams= or "
+                               "call run.calibrate(style_stack, labels)")
+        labels = torch.as_tensor(labels, device=dev).long()
+        feat = vgg_quant_apply(run.qparams, images.permute(0, 3, 1, 2))
+        logits, _ = rec.read_features(feat, labels)
+        return logits.argmax(dim=-1)
+
+    def calibrate(style_stack, labels):
+        with torch.inference_mode():
+            images = base.run_gen(style_stack, labels)
+            run.qparams = prepare_vgg_quant(rec, images.permute(0, 3, 1, 2))
+        calibrate_gen_quant(gen, style_stack, labels, dev)
+
+    def run(style_stack, labels):
+        images = run_gen(style_stack, labels)
+        return images, run_rec(images, labels)
+
+    run.run_gen, run.run_rec, run.calibrate = run_gen, run_rec, calibrate
+    run.gen, run.rec, run.base = gen, rec, base
+    run.qparams = None if qparams is None else qparams_to(qparams, dev)
     return run

@@ -10,7 +10,8 @@ module's train/eval mode as flax's ``use_running_average=not train`` does.
 ``Conv2dBlock``, ``ActFirstResBlock`` and ``avg_pool_3x3_s2_refpad`` build
 the discriminator and writer classifier, ``Conv2dBlock`` with instance
 norm the ``cnn`` style encoder; ``ResBlock`` and ``LinearBlock`` are not
-ported (nothing ported uses them).
+ported (nothing ported uses them).  ``get_group_size``, ``GroupNorm`` and
+``Conv1d`` serve the line-generation models.
 """
 
 from __future__ import annotations
@@ -92,6 +93,59 @@ class Conv2d(nn.Conv2d):
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
                         self.padding, groups=self.groups)
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` over (B, C, T) computing in ``compute_dtype`` on f32
+    parameters (flax ``nn.Conv`` with a 1-D kernel)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, *, padding=0,
+                 dilation: int = 1, compute_dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, kernel, padding=padding,
+                         dilation=dilation)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                        self.stride, self.padding, self.dilation)
+
+
+def get_group_size(channels: int) -> int:
+    """The JAX package's ``models/blocks.py:get_group_size`` (used there as
+    the number of groups): 8, or 4 below 32 channels, when it divides,
+    else the prime factor nearest to it (the last such on a tie)."""
+    goal = 8 if channels >= 32 else 4
+    if channels % goal == 0:
+        return goal
+    factors, n, f = [], channels, 2
+    while f * f <= n:
+        while n % f == 0:
+            factors.append(f)
+            n //= f
+        f += 1
+    if n > 1:
+        factors.append(n)
+    best, best_dist = 1, 10 ** 9
+    for f in factors:
+        if abs(f - goal) <= best_dist:
+            best, best_dist = f, abs(f - goal)
+    return best
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups, epsilon=1e-6, dtype=f32)`` over dim
+    1 of an (N, C, ...) tensor, in f32, returning f32."""
+
+    def __init__(self, num_groups: int, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight,
+                            self.bias, self.eps)
 
 
 class Linear(nn.Linear):

@@ -17,6 +17,16 @@ plain versions on the CPU.  The kernels are forward-only, like the JAX
 package's Pallas kernels, so in train mode (the JAX gate ``not train``)
 the norms are ``relu(instance_norm(x))`` and the head is the einsum and 25
 shifted slices of ``fold_head``, all in autograd.
+
+w8a8 serving (``Decoder.set_quant_mode``, JAX ``Decoder(quant=True,
+quant_mode=...)``): the four res-block convs and, in subpixel mode, the
+three folded upsample convs run through ``ops/quant.py`` with the same
+parameters; the norms, iAFF and the head stay in the compute dtype, and
+so go through the two kernels as above.  ``"dynamic"``: per-sample scales;
+``"calib"``: the float path, recording ``max|x|`` of each site's input over
+every call into the site's ``amax`` buffer (JAX ``("quant", "amax")``;
+non-persistent, so state dicts do not change); ``"static"``: the int8
+conv at the recorded ``amax``, padding the int8 tensor.  Forward-only.
 """
 
 from __future__ import annotations
@@ -32,6 +42,31 @@ from affganwriting_torch.models.blocks import Conv2d, depth_to_space, pad2d
 from affganwriting_torch.ops.in_relu_cuda import in_relu
 from affganwriting_torch.ops.norms import instance_norm
 from affganwriting_torch.ops.phase_head_cuda import phase_head
+from affganwriting_torch.ops.quant import dyn_int8_conv, static_int8_conv
+
+QUANT_MODES = ("dynamic", "calib", "static")
+
+
+def _add_amax(site: nn.Module) -> None:
+    site.register_buffer("amax", torch.zeros(()), persistent=False)
+
+
+def record_amax(site: nn.Module, x: torch.Tensor) -> None:
+    """``calib`` mode: ``site.amax = max(site.amax, max|x|)``."""
+    with torch.no_grad():
+        site.amax.copy_(torch.maximum(site.amax, x.float().abs().amax()))
+
+
+def int8_conv_site(site: nn.Module, mode: str, x, w, bias, out_dtype,
+                   pad: int, pad_type: str = "reflect"):
+    """One int8 conv site (JAX ``models/decoder.py:_quant_conv_site``): the
+    stride-1 VALID conv of x padded by ``pad``, with per-sample scales
+    (``"dynamic"``) or at ``site.amax`` (``"static"``)."""
+    if mode == "dynamic":
+        return dyn_int8_conv(pad2d(x, pad, pad_type), w, bias,
+                             out_dtype=out_dtype)
+    return static_int8_conv(x, w, site.amax, bias, out_dtype=out_dtype,
+                            pad=pad, pad_type=pad_type)
 
 
 def _phase_fold_matrix(taps: int, offsets: int) -> torch.Tensor:
@@ -121,8 +156,10 @@ class UpsampleConv(nn.Module):
                  emit_phase: bool = False, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.subpixel, self.emit_phase, self.dtype = subpixel, emit_phase, dtype
+        self.quant_mode: str | None = None     # subpixel mode only
         self.weight = nn.Parameter(torch.empty(features, cin, 5, 5))
         self.bias = nn.Parameter(torch.zeros(features))
+        _add_amax(self)
 
     def forward(self, x):
         dt = self.dtype
@@ -131,8 +168,14 @@ class UpsampleConv(nn.Module):
             up = pad2d(up, 2, "reflect")
             return F.conv2d(up.to(dt), self.weight.to(dt), self.bias.to(dt))
         w4 = fold_upsample_kernel(self.weight)
-        y = F.conv2d(pad2d(x, 1, "reflect").to(dt), w4.to(dt),
-                     self.bias.repeat(4).to(dt))
+        bias4 = self.bias.repeat(4).to(dt)
+        if self.quant_mode == "calib":
+            record_amax(self, x)
+        if self.quant_mode in ("dynamic", "static"):
+            y = int8_conv_site(self, self.quant_mode, x, w4, None, dt, pad=1)
+            y = y + bias4.view(1, -1, 1, 1)
+        else:
+            y = F.conv2d(pad2d(x, 1, "reflect").to(dt), w4.to(dt), bias4)
         return y if self.emit_phase else depth_to_space(y)
 
 
@@ -183,15 +226,27 @@ class AdaINResBlock(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.pad_type = pad_type
+        self.quant_mode: str | None = None
         self.conv0 = Conv2d(dim, dim, 3, compute_dtype=dtype)
         self.adain0 = AdaINFusion(dim, dtype)
         self.conv1 = Conv2d(dim, dim, 3, compute_dtype=dtype)
         self.adain1 = AdaINFusion(dim, dtype, fuse_skip=True)
+        _add_amax(self.conv0)
+        _add_amax(self.conv1)
+
+    def _conv(self, conv: Conv2d, h):
+        if self.quant_mode == "calib":
+            record_amax(conv, h)
+        if self.quant_mode in ("dynamic", "static"):
+            return int8_conv_site(conv, self.quant_mode, h, conv.weight,
+                                  conv.bias, conv.compute_dtype, pad=1,
+                                  pad_type=self.pad_type)
+        return conv(pad2d(h, 1, self.pad_type))
 
     def forward(self, x, params0, params1, skip1):
-        h = self.conv0(pad2d(x, 1, self.pad_type))
+        h = self._conv(self.conv0, x)
         h = torch.relu(self.adain0(h, *params0))
-        h = self.conv1(pad2d(h, 1, self.pad_type))
+        h = self._conv(self.conv1, h)
         h = self.adain1(h, *params1, skip=skip1)
         return x + h
 
@@ -213,6 +268,26 @@ class Decoder(nn.Module):
             d //= 2
         self.head = (PhaseHead(d, dtype) if subpixel_upsample
                      else ExactHead(d, pad_type, dtype))
+
+    def quant_sites(self) -> dict[str, nn.Module]:
+        """The int8 conv sites by their JAX ``"quant"`` collection paths
+        (``res0/conv0``, ..., ``up2``), each holding an ``amax`` buffer."""
+        sites = {f"res{r}/conv{c}": getattr(getattr(self, f"res{r}"),
+                                            f"conv{c}")
+                 for r in (0, 1) for c in (0, 1)}
+        if self.subpixel:
+            sites.update({f"up{i}": getattr(self, f"up{i}")
+                          for i in range(self.ups)})
+        return sites
+
+    def set_quant_mode(self, mode: str | None) -> None:
+        """None (the float path) or one of ``QUANT_MODES`` for every conv
+        site; eval mode only."""
+        if mode is not None and mode not in QUANT_MODES:
+            raise ValueError(f"unknown quant_mode {mode!r}")
+        for m in (self.res0, self.res1,
+                  *(getattr(self, f"up{i}") for i in range(self.ups))):
+            m.quant_mode = mode
 
     def forward(self, content: torch.Tensor, adain_params: torch.Tensor,
                 style_pyramid: Sequence[torch.Tensor]) -> torch.Tensor:

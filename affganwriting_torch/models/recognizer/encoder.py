@@ -91,12 +91,22 @@ class RecEncoder(nn.Module):
         (H/16) * 512)."""
         if img.shape[1] == 1:
             img = img.expand(-1, 3, -1, -1)
-        feat = self.vgg(img)
+        return self.feat_sequence(self.vgg(img), generator)
+
+    def feat_sequence(self, feat, generator: torch.Generator | None = None):
+        """Trunk features (B, 512, H/16, W/16) -> the BiGRU's f32 input;
+        whole channels drop out in train mode."""
         if self.training:
             feat = dropout(feat, self.dropout, generator, channels=True)
         b, c, h, w = feat.shape
         # width is the sequence axis; features flatten (height, channel)
         return feat.permute(0, 3, 2, 1).reshape(b, w, h * c).float()
+
+    def from_feat(self, feat, generator: torch.Generator | None = None):
+        """The tail after the trunk (JAX ``RecEncoder.from_feat``): trunk
+        features, e.g. the int8 trunk's (``ops/quant.py:vgg_quant_apply``)
+        -> (enc_out, the decoder's initial hidden state)."""
+        return self.rnn(self.feat_sequence(feat, generator), generator)
 
     def forward(self, img, generator: torch.Generator | None = None):
         return self.rnn(self.sequence(img, generator), generator)

@@ -91,6 +91,13 @@ class Recognizer(nn.Module):
                            teacher_rate=teacher_rate,
                            teacher_mask=teacher_mask)
 
+    def read_features(self, feat, labels):
+        """Free-running logits and attention from trunk features (B, 512,
+        H/16, W/16) computed elsewhere: the int8 serving path's tail
+        (JAX ``Recognizer.read_features``).  Call it in eval mode."""
+        enc_out, hidden0 = self.enc.from_feat(feat)
+        return self.decode(enc_out, hidden0, labels)
+
     def decode(self, enc_out, hidden0, labels,
                generator: torch.Generator | None = None, *,
                teacher_rate: float = 0.0,

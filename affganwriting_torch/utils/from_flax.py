@@ -28,6 +28,15 @@ caller hands the flax trees over as nested dicts of numpy arrays
   bwd0, fwd1, bwd1: cell k goes to the one-layer bidirectional ``gru{k //
   2}``, its ``_reverse`` weights when k is odd; the decoder's
   cells are ``dec/gru0`` and ``dec/gru1``.
+- LSTM cells (flax ``OptimizedLSTMCell``: input kernels ``ii if ig io``
+  without bias, hidden kernels ``hi hf hg ho`` with bias) stack as torch's
+  [i, f, g, o] with ``bias_ih`` 0.  The line HWRs keep their two cells at
+  ``OptimizedLSTMCell_0`` (forward) and ``_1`` (backward): cell k goes to
+  the bidirectional ``lstm``, its ``_reverse`` weights when k is odd.
+- The line models (``line_from_flax``): the stacked per-class parameters
+  of the char-style banks (``w1``, ..., ``bf2``, ``fill_*``) and the
+  spacer's ``mean``/``std`` keep their flax shapes; an equal-lr ``weight``
+  (kh, kw, I, O) takes the conv rule, a noise weight (C,) stays.
 
 ``from_flax`` raises on any flax leaf it did not consume, and on any port
 parameter or buffer it did not fill or filled with the wrong shape.
@@ -59,6 +68,7 @@ from affganwriting_torch.train.state import (
 )
 
 _GRU_GATES = frozenset(("ir", "iz", "in", "hr", "hz", "hn"))
+_LSTM_GATES = frozenset(("ii", "if", "ig", "io", "hi", "hf", "hg", "ho"))
 _ATTENTION = frozenset(("query", "key", "value", "out"))
 _KERNEL_PERM = {4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}
 _PARAM_LEAVES = {"bias": "bias", "scale": "weight", "embedding": "weight",
@@ -91,6 +101,22 @@ def _gru(cell: Mapping, prefix: str, suffix: str, path: tuple,
         out[_key(prefix, name + suffix)] = _t(v)
 
 
+def _lstm(cell: Mapping, prefix: str, suffix: str, path: tuple,
+          out: dict, consumed: set) -> None:
+    def take(gate, leaf):
+        consumed.add(path + (gate, leaf))
+        return np.asarray(cell[gate][leaf], np.float32)
+
+    w_ih = np.concatenate([take(g, "kernel").T for g in ("ii", "if", "ig",
+                                                          "io")])
+    w_hh = np.concatenate([take(g, "kernel").T for g in ("hi", "hf", "hg",
+                                                          "ho")])
+    b_hh = np.concatenate([take(g, "bias") for g in ("hi", "hf", "hg", "ho")])
+    for name, v in (("weight_ih", w_ih), ("weight_hh", w_hh),
+                    ("bias_ih", np.zeros_like(b_hh)), ("bias_hh", b_hh)):
+        out[_key(prefix, name + suffix)] = _t(v)
+
+
 def _attention(node: Mapping, prefix: str, path: tuple, out: dict,
                consumed: set) -> None:
     for proj, leaves in node.items():
@@ -108,12 +134,18 @@ def _attention(node: Mapping, prefix: str, path: tuple, out: dict,
 
 
 def _walk(node: Mapping, path: tuple, collection: str, out: dict,
-          consumed: set) -> None:
+          consumed: set, extra: Mapping) -> None:
     for name, child in node.items():
         p = path + (name,)
         if isinstance(child, Mapping):
             if collection == "params" and set(child) == _ATTENTION:
                 _attention(child, _key(*p), (collection,) + p, out, consumed)
+            elif collection == "params" and set(child) == _LSTM_GATES:
+                k = int(re.fullmatch(r"OptimizedLSTMCell_(\d+)",
+                                     name).group(1))
+                _lstm(child, _key(*path, "lstm"),
+                      "_l0" + ("_reverse" if k % 2 else ""),
+                      (collection,) + p, out, consumed)
             elif collection == "params" and set(child) == _GRU_GATES:
                 m = re.fullmatch(r"GRUCell_(\d+)", name)
                 if m:       # a BiGRU cell: layer k // 2, odd k reversed
@@ -124,11 +156,13 @@ def _walk(node: Mapping, path: tuple, collection: str, out: dict,
                     prefix, suffix = _key(*p), ""
                 _gru(child, prefix, suffix, (collection,) + p, out, consumed)
             else:
-                _walk(child, p, collection, out, consumed)
+                _walk(child, p, collection, out, consumed, extra)
             continue
         arr = np.asarray(child)
         if collection == "batch_stats":
             leaf, value = _STAT_LEAVES.get(name), arr
+        elif name in extra:
+            leaf, value = name, extra[name](arr)
         elif name == "kernel" and arr.ndim in _KERNEL_PERM:
             leaf, value = "weight", arr.transpose(_KERNEL_PERM[arr.ndim])
         else:
@@ -150,14 +184,16 @@ def _leaves(tree: Mapping, path: tuple = ()) -> set:
 
 
 def convert_module(variables: Mapping, module: torch.nn.Module, *,
-                   params_only: bool = False) -> dict:
+                   params_only: bool = False,
+                   extra: Mapping | None = None) -> dict:
     """Flax ``variables`` of one module -> a state dict for the port's
     counterpart ``module`` (which may live on the meta device); with
     ``params_only``, {parameter name: tensor} for a parameter-shaped tree
     under ``variables["params"]`` (an optimizer moment).  Raises on any
     flax leaf not consumed and on any of ``module``'s parameters (and,
     unless ``params_only``, buffers) not filled, or filled with the wrong
-    shape."""
+    shape.  ``extra`` maps further parameter leaf names to functions of
+    the flax array giving the port's tensor, under the same name."""
     tensors = (module.named_parameters() if params_only
                else module.state_dict().items())
     expected = {k: tuple(v.shape) for k, v in tensors}
@@ -165,7 +201,8 @@ def convert_module(variables: Mapping, module: torch.nn.Module, *,
     consumed: set = set()
     for collection in ("params", "batch_stats"):
         if collection in variables:
-            _walk(variables[collection], (), collection, out, consumed)
+            _walk(variables[collection], (), collection, out, consumed,
+                  extra or {})
     problems = []
     left = sorted("/".join(p) for p in _leaves(variables) - consumed)
     if left:
@@ -265,6 +302,54 @@ def from_flax(gen_variables: Mapping, rec_variables: Mapping,
         rec = new_recognizer(config)
     return (convert_module(gen_variables, gen),
             convert_module(rec_variables, rec))
+
+
+def gen_quant_from_flax(quant: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX generator's calibrated ``"quant"`` collection
+    (``calibrate_gen_quant(...)["quant"]``, numpy leaves ``dec/<site>/
+    amax``) -> {site path: amax} for ``gen/inference.py:load_gen_quant``."""
+    out = {}
+    for path in _leaves(quant):
+        if path[0] != "dec" or path[-1] != "amax":
+            raise ValueError(f"not a decoder quant site: {'/'.join(path)}")
+        node = quant
+        for k in path:
+            node = node[k]
+        out["/".join(path[1:-1])] = _t(node)
+    return out
+
+
+def vgg_qparams_from_flax(qparams: Mapping) -> dict:
+    """JAX ``ops/quant.py:prepare_vgg_quant`` output (numpy leaves) -> the
+    port's: int8 HWIO kernels ``wq``/``wq_gray`` -> (O, I, kh, kw); ``sw``,
+    ``sw_gray``, ``b`` and ``amax`` as f32 tensors."""
+    layers = []
+    for layer in qparams["layers"]:
+        entry = {}
+        for k, v in layer.items():
+            a = np.asarray(v)
+            entry[k] = (torch.from_numpy(np.ascontiguousarray(
+                a.transpose(3, 2, 0, 1)).astype(np.int8))
+                if k in ("wq", "wq_gray") else _t(a))
+        layers.append(entry)
+    return {"layers": layers}
+
+
+_LINE_LEAVES = {
+    **{k: (lambda a: a) for k in (
+        "w1", "b1", "g1s", "g1b", "w2", "b2", "w3", "b3", "g2s", "g2b",
+        "wf1", "bf1", "wf2", "bf2", "fill_w1", "fill_b1", "fill_w2",
+        "fill_b2", "mean", "std")},
+    "weight": lambda a: a.transpose(3, 2, 0, 1) if a.ndim == 4 else a,
+}
+
+
+def line_from_flax(variables: Mapping, module: torch.nn.Module) -> dict:
+    """Flax variables (params and batch_stats, numpy leaves) of a line
+    model (``models/line/``: ``HWWithStyle`` or any of its parts) -> a
+    state dict for the port's ``module``, with ``convert_module``'s leaf
+    accounting."""
+    return convert_module(variables, module, extra=_LINE_LEAVES)
 
 
 def trocr_core_from_flax(params: Mapping, arch) -> dict:

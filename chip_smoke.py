@@ -59,7 +59,7 @@ non-zero before printing any result.  Phases, each fatal on failure:
    steps at batch 8 (losses finite, all four players moved, efficientnet's
    running statistics moved, inception's bit-unchanged in the first; 3
    more timed);
-   (c) ``cli/quality_report`` on phase 7's ``best`` (4 writers, 64 real
+   (c) ``cli/quality_report`` on phase 7's ``best`` (2 writers, 64 real
    words each): its keys, ``cer`` equal to ``cer_of_folder``, a finite
    ``fid_random_features``, the seconds of each part, the kernel launches,
    and the activation pass alone (ms an image over 512 crops);
@@ -83,7 +83,26 @@ non-zero before printing any result.  Phases, each fatal on failure:
    step and the augmentation's host ms a batch; (e) ``entry()`` once
    (images (8, 64, 216, 1), 2 + 1 launches), ``cli/bench --batch 256
    --quick`` and ``cli/bench_kernels --batch 256``, each printing its JSON
-   lines.
+   lines;
+10. w8a8 serving at ``default_config()`` (random weights, 1 writer x 256
+   words): (a) calibration timed (R's trunk on one bf16 batch, G's seven
+   sites on the request), the int8 route against the bf16 route under the
+   JAX package's gates (trunk features correlation > 0.98 and relative
+   error < 0.2, the static and dynamic decoders' images correlation >
+   0.99), 23 ``torch._int_mm`` calls a request (no int8 conv as a float
+   conv), ``int8_conv``'s int32 sums on the card bit-equal to the CPU's at
+   three trunk layer shapes and G's ``res0.conv0``; (b) the int8 and bf16
+   requests in turns (median of 10), device ms of ``G.generate`` and the
+   trunk in each, the int8 generate call's launches (``in_relu`` 2,
+   ``phase_head`` 1), peak memory, one traced int8 request; (c)
+   ``tools/ab_int8_static`` and ``cli/bench --headline int8 --batch 256
+   --quick``; (d) ``tools/ab_int8_cer`` on phase 7's ``best``;
+11. the line models: (a) a small f32 ``HWWithStyle`` on the card against
+   the CPU, ``char_style_dim`` 0 and 16; (b) ``HWWithStyle`` at its
+   published widths with ``cf_synth_charSpecMulti``'s ``char_style_dim``
+   16 and ``max_gen_length`` 128: ``extract_style`` of 16 lines of 64 x 512
+   (``a_batch_size`` 2) and ``generate`` of 16 lines, medians of 5, peak
+   memory, parameters, no kernel launched.
 
 Each phase prints its seconds.  The last lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
@@ -105,6 +124,10 @@ SEED = 0
 WORDS = ["the", "quick", "brown", "fox", "jumps", "over", "lazy", "dog"]
 NEW_ENCODERS = ("cnn", "vgg19", "inception_v3", "efficientnet_v2_l",
                 "dinov2_s", "dinov2_b", "dinov2_l", "dinov2_g")
+# writers of phase 8c's report: each costs a 2048x2048 scipy sqrtm on the
+# host (~21 s) in quality_report and again in evaluate --per-writer; 2 keep
+# the whole smoke near 10 minutes
+QUALITY_WRITERS = 2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1067,7 +1090,7 @@ def phase_encoders(torch, card: str, counts, zero):
 
 
 def phase_quality_report(torch, tmp: str, counts, zero):
-    """(c) ``cli/quality_report`` on phase 7's ``best`` with 4 writers and
+    """(c) ``cli/quality_report`` on phase 7's ``best`` with 2 writers and
     64 real words each; (d) ``cli/evaluate`` on its two folders, with and
     without ``--per-writer``."""
     import contextlib
@@ -1083,7 +1106,8 @@ def phase_quality_report(torch, tmp: str, counts, zero):
     with contextlib.redirect_stdout(io.StringIO()):
         report = quality_report.main([
             "--ckpt", os.path.join(tmp, "run", "ckpt"), "--ckpt-name",
-            "best", "--max-writers", "4", "--words-per-writer", "64",
+            "best", "--max-writers", str(QUALITY_WRITERS),
+            "--words-per-writer", "64",
             "--out", out_dir])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1100,11 +1124,12 @@ def phase_quality_report(torch, tmp: str, counts, zero):
                              f"cer_of_folder's {cer_of_folder(gen_dir)}")
     if not math.isfinite(report["fid_random_features"]):
         raise AssertionError(f"fid {report['fid_random_features']}")
-    calls = report["cer"]["count"] // 4 // 64 + (
-        report["cer"]["count"] // 4 % 64 > 0)
-    if launched != (2 * 4 * calls, 4 * calls, 0):
+    w = QUALITY_WRITERS
+    calls = report["cer"]["count"] // w // 64 + (
+        report["cer"]["count"] // w % 64 > 0)
+    if launched != (2 * w * calls, w * calls, 0):
         raise AssertionError(f"quality_report launched {launched} for "
-                             f"{4 * calls} generate calls")
+                             f"{w * calls} generate calls")
     n_real = len(os.listdir(real_dir))
     log(f"  quality_report: {wall:.3f} s wall; {report['cer']['count']} "
         f"generated and {n_real} real words; cer {report['cer']['cer']:.3f}"
@@ -1112,9 +1137,9 @@ def phase_quality_report(torch, tmp: str, counts, zero):
         f"{report['fid_random_features']:.6g}, wid "
         f"{report.get('wid_fid_random_features', report.get('wid_fid_error'))}"
         f"; seconds { {k: round(v, 3) for k, v in report['seconds'].items()} }"
-        f"; launches {launched} over {4 * calls} generate calls")
+        f"; launches {launched} over {w * calls} generate calls")
     res = {"report": report, "wall_s": wall, "launches": list(launched),
-           "generate_calls": 4 * calls, "real_words": n_real}
+           "generate_calls": w * calls, "real_words": n_real}
     # the activation pass alone: 512 crops, upload and download included
     import numpy as np
 
@@ -1398,6 +1423,374 @@ def phase_htr(torch, card: str):
             "loss": m["loss"], "cer": m["cer"]}
 
 
+def _corr(a, b) -> float:
+    import numpy as np
+
+    a = a.float().flatten().cpu().numpy().astype(np.float64)
+    b = b.float().flatten().cpu().numpy().astype(np.float64)
+    return float(np.corrcoef(a, b)[0, 1])
+
+
+def phase_int8(torch, card: str, counts, zero):
+    """10 (a), (b): the w8a8 serving mode at ``default_config()`` (bf16,
+    random weights from the seed), 1 writer x 256 words.  (a) calibration
+    (R's trunk on one bf16 batch, G's sites on the same request), the
+    int8 route against the port's bf16 route under the JAX package's gates
+    (trunk features: correlation > 0.98, relative error < 0.2; the static
+    and dynamic decoders' images: correlation > 0.99), every int8 site
+    through ``torch._int_mm`` (23 calls a request), and ``int8_conv``'s
+    int32 sums on the card bit-equal to the CPU's at three of the trunk's
+    layer shapes and G's ``res0.conv0`` (batch 8, random int8 codes);
+    (b) the int8 request against the bf16 one in turns (median of 10),
+    device ms of ``G.generate`` and the trunk in each, launches of the
+    int8 generate call, peak memory (models included, above what the phase
+    found allocated) and one traced int8 request."""
+    import numpy as np
+
+    from affganwriting_torch.core.config import default_config
+    from affganwriting_torch.gen.inference import (
+        calibrate_gen_quant,
+        encode_labels,
+        gen_fn_in_mode,
+        make_generate_and_read_quant_fn,
+    )
+    from affganwriting_torch.ops.quant import (
+        int8_conv_acc,
+        prepare_vgg_quant,
+        quantize_weight,
+        vgg_quant_apply,
+    )
+    from affganwriting_torch.tools.timing import cuda_ms
+
+    cfg = default_config()
+    base_bytes = torch.cuda.memory_allocated()
+    run = make_generate_and_read_quant_fn(cfg, quant_gen="static", seed=SEED)
+    gen, rec = run.gen, run.rec
+    rng = np.random.default_rng(SEED)
+    style = rng.normal(size=(1, cfg.img_height, cfg.img_width,
+                             cfg.style_stack)).astype(np.float32)
+    labels = encode_labels(WORDS * 32, cfg.output_max_len)
+    b = labels.shape[0]
+    style_t = torch.as_tensor(style, device="cuda")
+    lab = torch.as_tensor(labels, device="cuda").long()
+
+    out = {}
+    run.calibrate(style, labels)       # warm-up of the calibration path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.calibrate(style, labels)
+    torch.cuda.synchronize()
+    out["calibrate_ms"] = (time.perf_counter() - t0) * 1e3
+    with torch.inference_mode():
+        img_bf16 = run.base.run_gen(style, labels)
+        x = img_bf16.permute(0, 3, 1, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prepare_vgg_quant(rec, x)
+        torch.cuda.synchronize()
+        out["prepare_vgg_quant_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    calibrate_gen_quant(gen, style, labels, "cuda")
+    torch.cuda.synchronize()
+    out["calibrate_gen_quant_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"  calibration: {out['calibrate_ms']:.3f} ms in all (a bf16 "
+        f"generate call, then prepare_vgg_quant "
+        f"{out['prepare_vgg_quant_ms']:.3f} ms and calibrate_gen_quant "
+        f"{out['calibrate_gen_quant_ms']:.3f} ms)")
+
+    # (a) the int8 route against the bf16 route
+    with torch.inference_mode():
+        feat_ref = rec.enc.vgg(x.expand(-1, 3, -1, -1)).float()
+        feat_q = vgg_quant_apply(run.qparams, x).float()
+        corr = _corr(feat_q, feat_ref)
+        rel = float((feat_q - feat_ref).norm() / feat_ref.norm())
+        gates = {"trunk_corr": corr, "trunk_rel_err": rel}
+        for mode in ("static", "dynamic"):
+            img_q = gen_fn_in_mode(gen, mode, "cuda")(style, labels)
+            gates[f"gen_{mode}_corr"] = _corr(img_q, img_bf16)
+    log(f"  int8 vs bf16: trunk features corr {corr:.5f} (> 0.98), rel err "
+        f"{rel:.4f} (< 0.2); images corr static "
+        f"{gates['gen_static_corr']:.5f}, dynamic "
+        f"{gates['gen_dynamic_corr']:.5f} (> 0.99)")
+    if not (corr > 0.98 and rel < 0.2 and gates["gen_static_corr"] > 0.99
+            and gates["gen_dynamic_corr"] > 0.99):
+        raise AssertionError(f"int8 route outside the JAX gates: {gates}")
+    out["gates"] = gates
+
+    calls = [0]
+    int_mm = torch._int_mm
+
+    def counted(a, m):
+        calls[0] += 1
+        return int_mm(a, m)
+
+    torch._int_mm = counted
+    try:
+        run(style, labels)
+        torch.cuda.synchronize()
+    finally:
+        torch._int_mm = int_mm
+    log(f"  torch._int_mm calls in an int8 request: {calls[0]} (16 trunk "
+        "convs + 7 decoder sites)")
+    if calls[0] != 23:
+        raise AssertionError(f"{calls[0]} int8 GEMMs in a request, not 23")
+
+    layers = run.qparams["layers"]
+    g = torch.Generator().manual_seed(SEED)
+    cases = {"vgg.conv0 (gray)": (layers[0]["wq_gray"], (8, 66, 218, 1)),
+             "vgg.conv4": (layers[4]["wq"], (8, 18, 56, 128)),
+             "vgg.conv12": (layers[12]["wq"], (8, 6, 15, 512)),
+             "dec.res0.conv0": (quantize_weight(
+                 gen.dec.res0.conv0.weight.float())[0], (8, 10, 29, 512))}
+    exact = {}
+    for name, (w, shape) in cases.items():
+        xq = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+        want = int8_conv_acc(xq, w.cpu())
+        got = int8_conv_acc(xq.cuda(), w).cpu()
+        exact[name] = bool(torch.equal(got, want))
+        log(f"  int8_conv sums card vs CPU, {name} x {shape} w "
+            f"{tuple(w.shape)}: {'bit-equal' if exact[name] else 'DIFFER'}"
+            f" (max |acc| {int(want.abs().max())})")
+    if not all(exact.values()):
+        raise AssertionError(f"int8 sums differ card vs CPU: {exact}")
+
+    # (b) timing: int8 and bf16 requests in turns
+    zero()
+    run(style, labels)
+    torch.cuda.synchronize()
+    launched = counts()
+    if launched != (2, 1, 0):
+        raise AssertionError(f"an int8 generate call launched {launched}, "
+                             "not in_relu 2 and phase_head 1 (wgmma)")
+    out["launches_int8_generate_call"] = list(launched)
+    walls = {"int8": [], "bf16": []}
+    for _ in range(10):
+        for k, fn in (("int8", run), ("bf16", run.base)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(style, labels)
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t)
+    for k in walls:
+        ms = statistics.median(walls[k]) * 1e3
+        out[f"{k}_request_ms"], out[f"{k}_imgs_per_s"] = ms, b / (ms / 1e3)
+    with torch.inference_mode():
+        pyramid = gen.encode_style(style_t)
+
+        def generate(mode):
+            def fn():
+                gen.dec.set_quant_mode(mode)
+                try:
+                    return gen.generate(pyramid, lab)
+                finally:
+                    gen.dec.set_quant_mode(None)
+            return fn
+
+        stages = {"G.generate int8": generate("static"),
+                  "G.generate bf16": generate(None),
+                  "R.trunk int8": lambda: vgg_quant_apply(run.qparams, x),
+                  "R.trunk bf16": lambda: rec.enc.vgg(
+                      x.expand(-1, 3, -1, -1))}
+        out["stages_ms"] = {k: cuda_ms(fn, iters=10, reps=2)
+                            for k, fn in stages.items()}
+    torch.cuda.reset_peak_memory_stats()
+    run(style, labels)
+    torch.cuda.synchronize()
+    out["int8_peak_gib"] = (torch.cuda.max_memory_allocated()
+                            - base_bytes) / 2**30
+    log(f"  1 x {b} words: int8 request {out['int8_request_ms']:.3f} ms "
+        f"({out['int8_imgs_per_s']:.1f} imgs/s), bf16 "
+        f"{out['bf16_request_ms']:.3f} ms ({out['bf16_imgs_per_s']:.1f} "
+        f"imgs/s), median of 10 in turns on {card}; int8 peak "
+        f"{out['int8_peak_gib']:.3f} GiB; int8 generate call launches "
+        f"{launched}")
+    for k, v in out["stages_ms"].items():
+        log(f"  stage {k:16s} {v:9.3f} ms")
+    kernel_ms, idle, n = traced(torch, lambda: run(style, labels), 3,
+                                out["int8_request_ms"], "int8 request")
+    out.update({"int8_kernel_ms": kernel_ms, "int8_idle_share": idle,
+                "int8_launches_per_request": n})
+    del run, gen, rec, pyramid
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_int8_tools(torch, tmp: str):
+    """10 (c) ``tools/ab_int8_static`` at batch 256 and ``cli/bench
+    --headline int8 --batch 256 --quick``; (d) ``tools/ab_int8_cer`` on
+    phase 7's ``best`` (4 writers x 64 words; the CER of random weights
+    only shows the path runs)."""
+    import os
+
+    from affganwriting_torch.cli import bench
+    from affganwriting_torch.tools import ab_int8_cer, ab_int8_static
+
+    log("  tools/ab_int8_static --batch 256:")
+    ab = ab_int8_static.main(["--batch", "256"])
+    torch.cuda.empty_cache()
+    log("  cli/bench --headline int8 --batch 256 --quick:")
+    result = bench.main(["--headline", "int8", "--batch", "256", "--quick"])
+    if "gen_read_int8_imgs_per_sec" not in result["extra"] \
+            or not result["metric"].endswith("(w8a8 serving mode)"):
+        raise AssertionError(f"cli/bench --headline int8: {result}")
+    torch.cuda.empty_cache()
+    log("  tools/ab_int8_cer on phase 7's best:")
+    cer = ab_int8_cer.main(["--ckpt", os.path.join(tmp, "run", "ckpt"),
+                            "--ckpt-name", "best", "--writers", "4",
+                            "--words", "64"])
+    if cer["bf16"]["count"] != cer["int8"]["count"] or \
+            not cer["bf16"]["count"]:
+        raise AssertionError(f"ab_int8_cer read {cer}")
+    torch.cuda.empty_cache()
+    return {"ab_int8_static": ab, "bench_int8": result, "ab_int8_cer": cer}
+
+
+def _line_model(torch, seed: int, **kw):
+    from affganwriting_torch.gen.inference import init_weights
+    from affganwriting_torch.models.line.container import HWWithStyle
+
+    return init_weights(HWWithStyle(**kw), seed).eval().requires_grad_(False)
+
+
+def _line_batch(torch, b: int, t: int, width: int, n_class: int, seed: int):
+    """Lines (b, 1, 64, width) and labels (b, t) of classes 1..n_class-1
+    with lengths from t/2 to t, from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    img = torch.tanh(torch.randn((b, 1, 64, width), generator=g))
+    label = torch.randint(1, n_class, (b, t), generator=g)
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
+    return img, label, lengths
+
+
+def phase_line_reference(torch):
+    """11 (a) A small f32 ``HWWithStyle`` (12 classes, style 16, generator
+    32, spaced length 12; random weights from the seed) on the card
+    against the CPU, with ``char_style_dim`` 0 and 16: the HWR's
+    log-probs, the style (``a_batch_size`` 2), the counts and the spaced
+    line, and the line generated from them with the same noise tensors;
+    1e-3 of max(1, |CPU|), the spaced lines equal."""
+    errs = {}
+    for csd in (0, 16):
+        kw = dict(n_class=12, style_dim=16, gen_dim=32, max_gen_length=12,
+                  char_style_dim=csd)
+        cpu_m = _line_model(torch, SEED, **kw)
+        gpu_m = _line_model(torch, SEED, **kw).cuda()
+        img, label, lengths = _line_batch(torch, 4, 5, 64, 12, SEED)
+        g = torch.Generator().manual_seed(SEED)
+        with torch.inference_mode():
+            style, pred = cpu_m.extract_style(img, 2)
+            spaced, counts, _ = cpu_m.space(label, lengths, style,
+                                            generator=g)
+            noise = [torch.randn(s, generator=g) for s in _noise_shapes(
+                cpu_m, 4, 12)]
+            line, _, _ = cpu_m(label, lengths, style, spaced, noise=noise)
+            style_c, pred_c = gpu_m.extract_style(img.cuda(), 2)
+            spaced_c, counts_c, _ = gpu_m.space(
+                label.cuda(), lengths.cuda(), style_c,
+                generator=torch.Generator(device="cuda").manual_seed(SEED))
+            line_c, _, _ = gpu_m(label.cuda(), lengths.cuda(), style_c,
+                                 spaced_c, noise=[n.cuda() for n in noise])
+        e = {k: _rel_err(c.cpu(), w) for k, c, w in (
+            ("pred", pred_c, pred), ("style", style_c, style),
+            ("counts", counts_c, counts), ("line", line_c, line))}
+        same = bool(torch.equal(spaced_c.cpu(), spaced))
+        log(f"  char_style_dim {csd}: card vs CPU " + ", ".join(
+            f"{k} {v:.3g}" for k, v in e.items())
+            + f" (tol 1e-3); spaced lines {'equal' if same else 'DIFFER'}")
+        if not same or max(e.values()) > 1e-3:
+            raise AssertionError(f"line model card vs CPU: {e}, spaced "
+                                 f"equal {same}")
+        errs[csd] = e
+    return errs
+
+
+def _noise_shapes(model, b: int, length: int):
+    """The ten noise shapes of the line generator for ``b`` lines of
+    spaced length ``length``: two (b, C, H, W) a block."""
+    gen = model.generator
+    shapes, h, w = [], 4, length
+    for i in range(5):
+        block = getattr(gen, f"block{i}")
+        if i in (1, 2):
+            h *= 2
+        elif i in (3, 4):
+            h, w = 2 * h, 2 * w
+        c = block.noise1.weight.shape[0]
+        shapes += [(b, c, h, w)] * 2
+    return shapes
+
+
+def phase_line_full(torch, card: str, counts, zero):
+    """11 (b) ``HWWithStyle`` at its published widths (80 classes, style
+    128, generator 256, the cnn_only HWR with BatchNorm) with
+    ``configs/cf_synth_charSpecMulti.json``'s ``char_style_dim`` 16 and
+    ``max_gen_length`` 128, f32, random weights from the seed:
+    ``extract_style`` on 16 lines of 64 x 512 with ``a_batch_size`` 2 and
+    ``generate`` of 16 lines (16, 1, 64, 512); median of 5 after a warm-up
+    each, peak memory (the model included, above what the phase found
+    allocated), parameters; no kernel launched."""
+    from affganwriting_torch.core.line_config import load_config
+
+    root = Path(__file__).resolve().parent
+    conf = load_config(str(root / "configs" / "cf_synth_charSpecMulti.json"))
+    kw = dict(n_class=80, style_dim=128, gen_dim=256, hwr_type="cnn_only",
+              char_style_dim=conf["model"]["char_style_dim"],
+              max_gen_length=conf["model"]["max_gen_length"])
+    a = conf["data_loader"]["a_batch_size"]
+    base_bytes = torch.cuda.memory_allocated()
+    model = _line_model(torch, SEED, **kw).cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    img, label, lengths = _line_batch(torch, 16, 40, 512, 80, SEED)
+    img, label, lengths = img.cuda(), label.cuda(), lengths.cuda()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {"params": n_params, **kw, "a_batch_size": a}
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for what, fn in (
+                ("extract_style", lambda: model.extract_style(img, a)),
+                ("generate", lambda: model.generate(label, lengths, style,
+                                                    generator=g))):
+            res = fn()
+            if what == "extract_style":
+                style, pred = res
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+            out[f"{what}_ms"] = statistics.median(walls) * 1e3
+        lines = model.generate(label, lengths, style, generator=g)
+    torch.cuda.synchronize()
+    out["peak_gib"] = (torch.cuda.max_memory_allocated()
+                       - base_bytes) / 2**30
+    out["launches"] = list(counts())
+    d = kw["char_style_dim"]
+    if tuple(style.shape) != (16, 128 + d + 80 * d) or \
+            tuple(lines.shape) != (16, 1, 64, 512) or \
+            not bool(torch.isfinite(lines).all()) or \
+            not bool(torch.isfinite(style).all()) or \
+            float(lines.abs().max()) > 1:
+        raise AssertionError(f"line models: style {tuple(style.shape)}, "
+                             f"lines {tuple(lines.shape)}")
+    if not torch.equal(style[0], style[1]):
+        raise AssertionError("an author's two lines got different styles")
+    if out["launches"] != [0, 0, 0]:
+        raise AssertionError(f"the line path launched {out['launches']}")
+    log(f"  HWWithStyle {n_params / 1e6:.2f} M parameters (char_style_dim "
+        f"{d}, max_gen_length {kw['max_gen_length']}): extract_style of "
+        f"16 x 64 x 512, a_batch_size {a}, {out['extract_style_ms']:.3f} "
+        f"ms; generate (16, 1, 64, 512) {out['generate_ms']:.3f} ms "
+        f"(medians of 5); HWR log-probs {tuple(pred.shape)}; peak "
+        f"{out['peak_gib']:.3f} GiB on {card}; kernel launches "
+        f"{out['launches']}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_entry_and_benches(torch, counts, zero):
     """(e) ``entry()``, ``cli/bench --batch 256 --quick`` and
     ``cli/bench_kernels`` at batch 256."""
@@ -1586,27 +1979,43 @@ def main() -> int:
         log("[8c,d] quality_report on phase 7's best; evaluate")
         quality = timed("8cd", phase_quality_report, torch, tmp, counts,
                         zero)
+        log("[9] TrOCR, the teacher phase, HTR, entry and benches")
+        log("[9a] tiny TrOCR card vs CPU, f32")
+        trocr_ref = timed("9a", phase_trocr_reference, torch)
+        tmp9 = tempfile.mkdtemp(prefix="phase9_", dir=root)
+        try:
+            log("[9b] train_word --recognizer trocr --trocr-preset base "
+                "(default_config, batch 8)")
+            trocr = timed("9b", phase_trocr, torch, smi, tmp9, counts, zero)
+        finally:
+            shutil.rmtree(tmp9, ignore_errors=True)
+        log("[9c] the teacher phase (default_config, 4 batches of 8)")
+        teacher = timed("9c", phase_teacher, torch, smi, counts, zero)
+        log("[9d] HTRTrainer (default_config, batch 32, 10 steps)")
+        htr = timed("9d", phase_htr, torch, smi)
+        log("[9e] entry(), cli/bench --batch 256 --quick, cli/bench_kernels")
+        benches = timed("9e", phase_entry_and_benches, torch, counts, zero)
+        seconds["9"] = sum(seconds[k] for k in ("9a", "9b", "9c", "9d",
+                                                "9e"))
+        log("[10] w8a8 serving at full width (default_config, 1 x 256 "
+            "words)")
+        log("[10a,b] int8 vs bf16 gates, int8 sums card vs CPU, timing")
+        int8 = timed("10ab", phase_int8, torch, smi, counts, zero)
+        log("[10c,d] tools/ab_int8_static, cli/bench --headline int8, "
+            "tools/ab_int8_cer on phase 7's best")
+        int8_tools = timed("10cd", phase_int8_tools, torch, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log("[9] TrOCR, the teacher phase, HTR, entry and benches")
-    log("[9a] tiny TrOCR card vs CPU, f32")
-    trocr_ref = timed("9a", phase_trocr_reference, torch)
-    tmp = tempfile.mkdtemp(prefix="phase9_", dir=root)
-    try:
-        log("[9b] train_word --recognizer trocr --trocr-preset base "
-            "(default_config, batch 8)")
-        trocr = timed("9b", phase_trocr, torch, smi, tmp, counts, zero)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    log("[9c] the teacher phase (default_config, 4 batches of 8)")
-    teacher = timed("9c", phase_teacher, torch, smi, counts, zero)
-    log("[9d] HTRTrainer (default_config, batch 32, 10 steps)")
-    htr = timed("9d", phase_htr, torch, smi)
-    log("[9e] entry(), cli/bench --batch 256 --quick, cli/bench_kernels")
-    benches = timed("9e", phase_entry_and_benches, torch, counts, zero)
-    seconds["9"] = sum(seconds[k] for k in ("9a", "9b", "9c", "9d", "9e"))
+    log("[11] the line-generation models")
+    log("[11a] a small f32 HWWithStyle card vs CPU, char_style_dim 0 and 16")
+    line_ref = timed("11a", phase_line_reference, torch)
+    log("[11b] HWWithStyle at full width (cf_synth_charSpecMulti)")
+    line = timed("11b", phase_line_full, torch, smi, counts, zero)
     for k, key in (("in_relu", 0), ("phase_head", 1)):
         row = kernels[[r["name"] for r in kernels].index(k)]
+        row["launches_int8_generate_call"] = \
+            int8["launches_int8_generate_call"][key]
+        row["launches_line_path"] = line["launches"][key]
         row["launches_teacher_generate_call"] = \
             teacher["launches_generate_call"][key]
         row["detail"].update({
@@ -1626,7 +2035,9 @@ def main() -> int:
                     "eval_reference": eval_ref, "encoders": encoders,
                     "quality_report": quality, "trocr_reference": trocr_ref,
                     "trocr": trocr, "teacher": teacher, "htr": htr,
-                    "benches": benches, "phase_s": seconds,
+                    "benches": benches, "int8": int8,
+                    "int8_tools": int8_tools, "line_reference": line_ref,
+                    "line": line, "phase_s": seconds,
                     "build_s": build_s}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

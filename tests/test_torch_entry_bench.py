@@ -6,8 +6,12 @@ on the CPU.
   one call at ``default_config()`` giving finite images (8, 64, 216, 1) in
   [-1, 1];
 - ``cli/bench``: its flags, the one-JSON-line result shape of the JAX
-  bench, and ``--headline int8`` and the int8 stage refused naming ROADMAP
-  Queue 1 item 9 (without a card it raises: tests/test_torch_hygiene.py);
+  bench, ``--headline fp8`` refused (int8, as in the JAX package, is the
+  only quantized mode), ``--headline int8`` raising without a card (as
+  every stage does: tests/test_torch_hygiene.py), and the order and keys of
+  the lines it prints with ``--headline int8`` and ``bf16``, the stages'
+  rates stubbed (the stages run on the card: ``chip_smoke.py`` phases 9e
+  and 10c);
 - ``cli/bench_kernels``: its flags and the JSON lines of a result;
 - ``train/sweep.py``: the JAX package's trial configs, best trial and saved
   study, exactly, for the same seed;
@@ -53,13 +57,64 @@ def test_bench_flags_and_int8_refusal(capsys):
     assert e.value.code == 0
     out = capsys.readouterr().out
     assert "--batch" in out and "--quick" in out and "--headline" in out
-    with pytest.raises(SystemExit, match="Queue 1 item 9"):
-        bench.main(["--headline", "int8", "--batch", "8"])
-    with pytest.raises(SystemExit, match="Queue 1 item 9"):
-        bench.run_gen_read_int8(256)
     with pytest.raises(SystemExit) as e:
         bench.main(["--headline", "fp8"])
     assert e.value.code == 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            bench.main(["--headline", "int8", "--batch", "8"])
+
+
+@pytest.mark.parametrize("headline", ["int8", "bf16"])
+def test_bench_headline_lines(headline, capsys, monkeypatch):
+    """The headline's stage runs first and gives ``value``; ``--quick``
+    stops after the headline stages; without it the int8 stage follows the
+    bf16 one.  The stages and the card's identity are stubbed."""
+    from affganwriting_torch.cli import bench
+    from affganwriting_torch.gen import inference
+    from affganwriting_torch.tools import timing
+
+    monkeypatch.setattr(inference, "resolve_device", lambda d: "cuda")
+    monkeypatch.setattr(timing, "nvidia_smi_line", lambda: "card, 700 W")
+    monkeypatch.setattr(bench, "fetch_floor_ms", lambda: 0.02)
+    ran = []
+
+    def stage(name, rates):
+        def fn(b):
+            ran.append(name)
+            return rates
+        fn.__name__ = name
+        return fn
+
+    monkeypatch.setattr(bench, "run_gen_read_int8",
+                        stage("int8", {"stream": 2500.0}))
+    monkeypatch.setattr(bench, "run_gen_read", stage("bf16", {
+        "stream": 4000.0, "fetch_stream": 3500.0, "fetch_mb_per_sec": 99.0,
+        "percall": 3900.0}))
+    monkeypatch.setattr(bench, "run_gen_only", stage("gen_only", None))
+    monkeypatch.setattr(bench, "run_train_step", stage("train", None))
+    for quick in (True, False):
+        ran.clear()
+        capsys.readouterr()
+        result = bench.main(["--batch", "8", "--headline", headline]
+                            + ["--quick"] * quick)
+        lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+        assert lines[-1] == result
+        want = 2500.0 if headline == "int8" else 4000.0
+        assert {x["value"] for x in lines} == {want}
+        assert lines[0]["metric"].endswith("(w8a8 serving mode)") == \
+            (headline == "int8")
+        order = ["int8", "bf16"] if headline == "int8" else ["bf16"]
+        if not quick:
+            order = (order + ["gen_only", "train"] if headline == "int8"
+                     else order + ["int8", "gen_only", "train"])
+        assert ran == order
+        extra = result["extra"]
+        if headline == "int8" or not quick:
+            assert extra["gen_read_int8_imgs_per_sec"] == 2500.0
+            assert extra["gen_read_int8_batch"] == 8
+            assert extra["gen_read_int8_mode"] == bench.INT8_MODE
+        assert extra["gen_read_bf16_imgs_per_sec"] == 4000.0
 
 
 def test_bench_prints_the_jax_benchs_result_shape(capsys):

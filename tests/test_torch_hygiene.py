@@ -43,6 +43,7 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
         build_models,
         build_recognizer,
         make_generate_and_read_fn,
+        make_generate_and_read_quant_fn,
         make_generate_fn,
     )
     from affganwriting_torch.train.eval_step import make_eval_step
@@ -63,7 +64,8 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
     trocr = small_torch_config(recognizer="trocr", rec_frozen=True)
     for fn, cfg in [(fn, small_torch_config()) for fn in (
             build_models, build_generator, build_recognizer,
-            make_generate_fn, make_generate_and_read_fn, init_state,
+            make_generate_fn, make_generate_and_read_fn,
+            make_generate_and_read_quant_fn, init_state,
             make_phased_train_step, make_train_step, make_eval_step,
             HTRTrainer, DeviceTrOCRTeacher)] + [
             (build_recognizer, trocr), (init_state, trocr)]:
@@ -73,6 +75,7 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
             fn(cfg, device="cuda")
     for run in (entry, lambda: entry(device="cuda"),
                 lambda: bench.main(["--batch", "8", "--quick"]),
+                lambda: bench.main(["--batch", "8", "--headline", "int8"]),
                 lambda: bench_kernels.main(["--batch", "8"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run()
@@ -81,8 +84,8 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
 def test_trainer_and_clis_need_a_card_or_an_explicit_cpu(tmp_path,
                                                          monkeypatch):
     """The trainer, ``train_word``'s builder and the other CLIs (the
-    teacher phase's two and ``train_htr`` among them) raise before they
-    build or write anything."""
+    teacher phase's two and ``train_htr`` among them) and the int8 A/B
+    tools raise before they build or write anything."""
     from affganwriting_torch.cli import (
         generate_word,
         inspect_ckpt,
@@ -91,6 +94,7 @@ def test_trainer_and_clis_need_a_card_or_an_explicit_cpu(tmp_path,
         train_htr,
         train_word,
     )
+    from affganwriting_torch.tools import ab_int8_cer, ab_int8_static
     from affganwriting_torch.train.loop import WordGanTrainer
     from test_torch_support import small_torch_config
 
@@ -116,7 +120,10 @@ def test_trainer_and_clis_need_a_card_or_an_explicit_cpu(tmp_path,
                 lambda: teacher_check.main(["--out", str(tmp_path / "tc")]
                                            + extra),
                 lambda: train_htr.main(["--logdir", str(tmp_path / "htr")]
-                                       + extra)):
+                                       + extra),
+                lambda: ab_int8_cer.main(["--ckpt", str(tmp_path / "ck")]
+                                         + extra),
+                lambda: ab_int8_static.main(["--batch", "8"])):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 run()
     assert not any((tmp_path / d).exists()

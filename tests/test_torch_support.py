@@ -248,3 +248,44 @@ def save_tiny_trocr(path, seed: int = 0, processor: bool = True):
         TrOCRProcessor(image_processor=images,
                        tokenizer=tok).save_pretrained(path)
     return model
+
+
+LINE_CLASSES = 12       # classes of the small line models
+
+
+def line_variables(module, *args, method=None, seed: int = 0,
+                   zero_noise: bool = False):
+    """Flax variables of ``module`` (init with params, noise and spacing
+    rngs), every leaf drawn from numpy; with ``zero_noise`` every
+    ``NoiseInjection`` weight (a ``noise1``/``noise2`` leaf) is 0."""
+    def init(key):
+        return module.init({"params": key, "noise": key, "spacing": key},
+                           *args, method=method)
+
+    shapes = jax.eval_shape(init, jax.random.key(0))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        names = [str(getattr(k, "key", k)) for k in path]
+        if zero_noise and names[-2] in ("noise1", "noise2"):
+            return np.zeros(leaf.shape, np.float32)
+        return np.asarray(_fill(path, leaf, rng), np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def japply(module, variables, *args, method=None, rngs=None, **static):
+    """``module.apply`` jitted (one XLA compile instead of a compile per
+    eager op); ``static`` are Python arguments of ``method``."""
+    return jax.jit(lambda v, r, *a: module.apply(
+        v, *a, method=method, rngs=r, **static))(variables, rngs, *args)
+
+
+def load_line(module: torch.nn.Module, variables) -> torch.nn.Module:
+    """Load flax line-model ``variables`` (``utils/from_flax.
+    line_from_flax``) into the port's ``module``, in eval mode."""
+    from affganwriting_torch.utils.from_flax import line_from_flax
+
+    module.load_state_dict(line_from_flax(to_numpy_tree(variables), module),
+                           strict=True)
+    return module.eval().requires_grad_(False)
