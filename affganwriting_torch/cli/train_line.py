@@ -1,0 +1,174 @@
+"""Train the line-level GAN on the card:
+``python -m affganwriting_torch.cli.train_line``.
+
+The port of ``affganwriting_tpu/cli/train_line.py`` (the reference's
+line_generation/train.py, ``python train.py -c config.json``): the JAX
+CLI's flags, ``--config`` and ``-a`` overrides, and ``--device`` (default
+the card; ``cpu`` runs on the CPU).  The curriculum is the reference's
+count/gen/auto/disc rotation; the lines are synthetic
+(``data/lines.LineDataset``).  Runtime: ``latest`` every
+``--save-latest-every`` iterations, periodic keeps every ``--save-every``,
+validation with monitor-best every ``--val-every``, SWA past
+``--swa-start``, a full resume (model, both optimizers, iteration and SWA)
+from ``<logdir>/ckpt/latest`` unless ``--no-resume``.
+
+Not ported yet, refused by name: ``--xml-root`` (the IAM line data, ROADMAP
+Queue 1 item 11), ``--mesh`` (item 10), ``--pretrained-hwr`` and
+``--pretrained-ae`` (their checkpoints come from ``cli/train_hwr`` and
+``cli/train_auto``, item 11).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def refuse_unported(args) -> None:
+    """Raise ``SystemExit`` for a flag the port does not have yet."""
+    from affganwriting_torch.train.line_trainer import refuse_pretrained
+
+    if args.xml_root:
+        raise SystemExit("--xml-root: the IAM line data (parse_iam, "
+                         "normalize_line) waits for ROADMAP Queue 1 item 11; "
+                         "run on the synthetic lines")
+    if args.mesh != "none":
+        raise SystemExit("--mesh: the multi-device port waits for ROADMAP "
+                         "Queue 1 item 10; run without --mesh")
+    refuse_pretrained(pretrained_hwr=args.pretrained_hwr,
+                      pretrained_ae=args.pretrained_ae)
+
+
+def parse(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--config", default=None,
+                   help="cf_<name>.json recipe (core/line_config.py); its "
+                        "model/trainer/optimizer keys override the flag "
+                        "defaults")
+    p.add_argument("-a", dest="overrides", action="append", default=[],
+                   metavar="KEY.PATH=VALUE",
+                   help="dotted-path config override (generate.py:116-138)")
+    p.add_argument("--iterations", type=int, default=240_000)
+    p.add_argument("--batch-authors", type=int, default=2)
+    p.add_argument("--a-batch-size", type=int, default=2)
+    p.add_argument("--max-gen-length", type=int, default=500)
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--logdir", default="runs/line_gan")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--xml-root", default=None,
+                   help="IAM form-XML dir (not ported yet)")
+    p.add_argument("--image-root", default=None,
+                   help="IAM form images dir; the synthetic lines whatever "
+                        "it holds, as in the JAX CLI")
+    p.add_argument("--split", default="train",
+                   choices=("train", "valid", "test"))
+    p.add_argument("--mesh", default="none", help="not ported yet")
+    p.add_argument("--save-every", type=int, default=2000)
+    p.add_argument("--save-latest-every", type=int, default=250)
+    p.add_argument("--val-every", type=int, default=1000,
+                   help="validation cadence; 0 disables")
+    p.add_argument("--val-batches", type=int, default=4)
+    p.add_argument("--swa-start", type=int, default=None)
+    p.add_argument("--no-resume", dest="resume", action="store_false",
+                   default=True)
+    p.add_argument("--sheet-every", type=int, default=2000,
+                   help="periodic real|recon|gen sheet cadence; 0 disables")
+    p.add_argument("--restart-rss-gb", type=float, default=48.0,
+                   help="host-RSS watchdog: save latest + re-exec (resume) "
+                        "past this RSS; 0 disables")
+    p.add_argument("--pretrained-hwr", default=None, help="not ported yet")
+    p.add_argument("--char-style-dim", type=int, default=0,
+                   help="per-character private style size; > 0 selects the "
+                        "multi-style extractor")
+    p.add_argument("--pretrained-ae", default=None, help="not ported yet")
+    p.add_argument("--device", default=None,
+                   help="default: the CUDA card; 'cpu' to run on the CPU")
+    args = p.parse_args(argv)
+    if args.config:
+        from affganwriting_torch.core.line_config import load_config
+
+        cf = load_config(args.config, args.overrides)
+        m = cf.get("model", {})
+        t = cf.get("trainer", {})
+        d = cf.get("data_loader", {})
+        args.char_style_dim = m.get("char_style_dim", args.char_style_dim)
+        args.max_gen_length = m.get("max_gen_length", args.max_gen_length)
+        args.pretrained_hwr = m.get("pretrained_hwr", args.pretrained_hwr)
+        args.iterations = t.get("iterations", args.iterations)
+        args.swa_start = t.get("swa_start", args.swa_start)
+        args.val_every = t.get("val_step", args.val_every)
+        args.save_every = t.get("save_step", args.save_every)
+        args.save_latest_every = t.get(
+            "save_step_minor", args.save_latest_every)
+        args.pretrained_ae = t.get("encoder_weights", args.pretrained_ae)
+        args.lr = cf.get("optimizer", {}).get("lr", args.lr)
+        args.batch_authors = d.get("batch_size", args.batch_authors)
+        args.a_batch_size = d.get("a_batch_size", args.a_batch_size)
+    refuse_unported(args)
+    return args
+
+
+def main(argv=None):
+    """Train; returns (trainer, final state).  The trainer resumes from
+    ``<logdir>/ckpt/latest`` unless ``--no-resume``."""
+    from affganwriting_torch.core.checkpoint import (
+        LineCheckpointManager,
+        restore_line_trainer,
+    )
+    from affganwriting_torch.data.lines import LineCharset, LineDataset
+    from affganwriting_torch.gen.inference import resolve_device
+    from affganwriting_torch.train.line_trainer import LineGanTrainer
+    from affganwriting_torch.utils.logging import MetricsLogger
+
+    args = parse(argv)
+    resolve_device(args.device)
+    charset = LineCharset()
+    ds = LineDataset(charset, a_batch_size=args.a_batch_size,
+                     width=args.width, seed=args.seed)
+    val_ds = LineDataset(charset, a_batch_size=args.a_batch_size,
+                         width=args.width, seed=args.seed + 1)
+    ckpt_dir = f"{args.logdir}/ckpt"
+    ckpt = LineCheckpointManager(ckpt_dir)
+    first = next(ds.batches(batch_authors=args.batch_authors))
+    swa_state, start_iteration = None, None
+    if args.resume and ckpt.latest_exists():
+        trainer, payload = restore_line_trainer(ckpt_dir, first, "latest",
+                                                device=args.device)
+        state = payload["state"]
+        swa_state = payload["swa"]
+        if int(swa_state["count"]) == 0:
+            swa_state = None   # the placeholder slot: SWA never started
+        start_iteration = int(payload["iteration"])
+        print(f"resumed from latest at iteration {start_iteration}")
+    else:
+        trainer = LineGanTrainer(
+            n_class=charset.n_class, max_gen_length=args.max_gen_length,
+            lr=args.lr, seed=args.seed, iterations=args.iterations,
+            char_style_dim=args.char_style_dim, device=args.device)
+        state = trainer.init_state(first)
+
+    def stream():
+        epoch = 0
+        while True:
+            yield from ds.batches(args.batch_authors, epoch=epoch)
+            epoch += 1
+
+    def val_batches():
+        return val_ds.batches(args.batch_authors, epoch=0)
+
+    state = trainer.fit(
+        state, stream(), args.iterations,
+        logger=MetricsLogger(args.logdir), ckpt=ckpt,
+        save_every=args.save_every,
+        save_latest_every=args.save_latest_every,
+        val_batches_fn=val_batches if args.val_every else None,
+        val_every=args.val_every, val_max_batches=args.val_batches,
+        swa_start=args.swa_start, swa_state=swa_state,
+        start_iteration=start_iteration,
+        sheet_every=args.sheet_every, sheet_dir=f"{args.logdir}/sheets",
+        restart_rss_gb=args.restart_rss_gb)
+    return trainer, state
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
-"""Checkpoints of the word GAN: latest, periodic and best.
+"""Checkpoints of the word and line GANs: latest, periodic and best.
 
-The port of ``affganwriting_tpu/core/checkpoint.py:CheckpointManager``.  A
+The port of ``affganwriting_tpu/core/checkpoint.py``.  A
 checkpoint is one ``torch.save`` file holding everything a resume needs:
 ``{"step", and per player "gen", "dis", "cla", "rec": {"model": state dict
 (parameters and BatchNorm running statistics), "opt": optimizer state dict
@@ -14,6 +14,15 @@ file renamed into place, so a ``.new`` is always complete) and commits with
 two renames, the old file aside and the new one into place.  At every
 instant ``<path>`` or a complete ``<path>.new`` exists, and
 ``_recover_swap`` promotes the latter after a crash between the renames.
+
+The line GAN (``LineCheckpointManager``, ``restore_line_trainer``): the
+payload is ``{"state": {"step", "model", "disc", "ae": state dicts (the
+main tree, the frozen HWR and its BatchNorm statistics; D with its
+spectral-norm ``u``/``sigma``; the AE), "main_opt", "disc_opt": optimizer
+state dicts}, "swa": {"avg": {name: tensor}, "count"}, "iteration"}``, the
+explicit iteration being the curriculum clock; the trainer's constructor
+config rides beside it as ``<name>.config.json``, from which generation
+and the app rebuild the model (the reference's generate.py:88-97).
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import re
 import torch
 
 from affganwriting_torch.core.config import WordGanConfig
+from affganwriting_torch.train.schedules import host_step_counts
 from affganwriting_torch.train.state import PLAYERS
 
 
@@ -49,12 +59,7 @@ def load_payload(state, payload: dict):
             raise ValueError(f"{name}: the checkpoint and the state disagree "
                              "on whether it has an optimizer (rec_frozen?)")
         if player.opt is not None:
-            # torch keeps Adam's step counts on the host (outside its
-            # capturable and fused modes); a load onto the card moved them
-            for s in saved["opt"]["state"].values():
-                if isinstance(s.get("step"), torch.Tensor):
-                    s["step"] = s["step"].cpu()
-            player.opt.load_state_dict(saved["opt"])
+            player.opt.load_state_dict(host_step_counts(saved["opt"]))
     return state
 
 
@@ -145,3 +150,65 @@ class CheckpointManager:
     def latest_exists(self) -> bool:
         self._recover_swap(self._path("latest"))
         return os.path.exists(self._path("latest"))
+
+
+def line_payload(payload: dict) -> dict:
+    """A line-trainer payload (``{"state": LineState, "swa", "iteration"}``)
+    as the checkpoint's dict."""
+    st = payload["state"]
+    return {"state": {"step": int(st.step),
+                      "model": st.model.state_dict(),
+                      "disc": st.disc.state_dict(),
+                      "ae": st.ae.state_dict(),
+                      "main_opt": st.main_opt.state_dict(),
+                      "disc_opt": st.disc_opt.state_dict()},
+            "swa": {"avg": dict(payload["swa"]["avg"]),
+                    "count": int(payload["swa"]["count"])},
+            "iteration": int(payload["iteration"])}
+
+
+def load_line_state(state, saved: dict):
+    """Load a checkpoint's ``"state"`` dict into a ``LineState`` in place;
+    returns it."""
+    state.step = int(saved["step"])
+    state.model.load_state_dict(saved["model"], strict=True)
+    state.disc.load_state_dict(saved["disc"], strict=True)
+    state.ae.load_state_dict(saved["ae"], strict=True)
+    state.main_opt.load_state_dict(saved["main_opt"])
+    state.disc_opt.load_state_dict(host_step_counts(saved["disc_opt"]))
+    return state
+
+
+class LineCheckpointManager(CheckpointManager):
+    """The line stack's latest/periodic/best trio (the reference's
+    base_trainer.py:340-399): ``line_payload`` of the trainer's payload,
+    and the trainer's constructor config as JSON beside it."""
+
+    def save(self, name: str, payload: dict, config: dict) -> None:
+        self._save_swap(self._path(name), line_payload(payload))
+        with open(self._path(f"{name}.config.json"), "w") as f:
+            json.dump(config, f, indent=2, sort_keys=True)
+
+    def load_config(self, name: str) -> dict:
+        with open(self._path(f"{name}.config.json")) as f:
+            return json.load(f)
+
+
+def restore_line_trainer(ckpt_dir: str, sample_batch: dict | None = None,
+                         name: str = "latest", curriculum=None,
+                         device=None):
+    """Checkpoint directory -> (trainer, payload): the trainer rebuilt from
+    the embedded config on ``device`` (``None``: the card), a fresh state
+    with the checkpoint loaded into it, the SWA slot and the iteration
+    (the reference's base_trainer.py:410-479, generate.py:88-97)."""
+    from affganwriting_torch.train.line_trainer import LineGanTrainer
+
+    mgr = LineCheckpointManager(ckpt_dir)
+    trainer = LineGanTrainer.from_config(mgr.load_config(name),
+                                         curriculum=curriculum,
+                                         device=device)
+    state = trainer.init_state(sample_batch)
+    saved = mgr.load(name, trainer.device)
+    load_line_state(state, saved["state"])
+    return trainer, {"state": state, "swa": saved["swa"],
+                     "iteration": int(saved["iteration"])}

@@ -9,8 +9,9 @@ Images are (B, 1, H, W); labels (B, T) class ids; spaced lines (B, L,
 n_class) one-hot at the static length ``max_gen_length``.
 
 Randomness comes from one ``torch.Generator`` (the JAX package's
-``"spacing"`` and ``"noise"`` rngs): the spacing noise first, then the
-generator's, or from tensors the caller hands in.
+``"dropout"``, ``"spacing"`` and ``"noise"`` rngs): the spacer's dropout
+masks in train mode, the spacing noise, then the generator's, or from
+tensors the caller hands in.
 """
 
 from __future__ import annotations
@@ -133,10 +134,11 @@ class HWWithStyle(nn.Module):
     def space(self, label, label_lengths, style, *,
               generator: torch.Generator | None = None, noise=None):
         """(spaced, the spacer's counts, padded fraction); ``noise`` is
-        ``insert_spaces``'."""
+        ``insert_spaces``'.  The spacer draws its dropout masks (train mode)
+        from ``generator`` before the spacing noise."""
         onehot = F.one_hot(label.long(), self.n_class).float()
         g = style if self.char_style_dim == 0 else self._unpack_style(style)[0]
-        counts = self.spacer(onehot, g)
+        counts = self.spacer(onehot, g, generator)
         spaced, padded = insert_spaces(
             label, label_lengths, counts, self.n_class, self.max_gen_length,
             self.count_std, self.dup_std, generator=generator, noise=noise)

@@ -38,6 +38,15 @@ caller hands the flax trees over as nested dicts of numpy arrays
   spacer's ``mean``/``std`` keep their flax shapes; an equal-lr ``weight``
   (kh, kw, I, O) takes the conv rule, a noise weight (C,) stays.
 
+- The line GAN (``line_state_from_flax``): ``DiscriminatorAP`` by the
+  conv rule, its spectral-norm ``batch_stats`` (``SpectralNorm_<k>/<conv>/
+  kernel/u`` and ``/sigma``) as the buffers ``<conv>.u`` and ``.sigma``;
+  the ``Autoencoder`` (and its ``EHWRHead``) by the generic rules of
+  ``convert_module``; the partitioned main optimizer
+  (optax ``multi_transform`` over main/slow/frozen) as one
+  ``train/schedules.py:PartitionedAdam``.  ``flax_paths`` reads the name
+  map backwards: port parameter -> JAX path string.
+
 ``from_flax`` raises on any flax leaf it did not consume, and on any port
 parameter or buffer it did not fill or filled with the wrong shape.
 
@@ -134,7 +143,9 @@ def _attention(node: Mapping, prefix: str, path: tuple, out: dict,
 
 
 def _walk(node: Mapping, path: tuple, collection: str, out: dict,
-          consumed: set, extra: Mapping) -> None:
+          consumed: set, extra: Mapping, paths: dict | None = None) -> None:
+    """``paths``, when given, maps each port key filled from one flax leaf
+    to that leaf's path string (``a/b/kernel``)."""
     for name, child in node.items():
         p = path + (name,)
         if isinstance(child, Mapping):
@@ -156,7 +167,7 @@ def _walk(node: Mapping, path: tuple, collection: str, out: dict,
                     prefix, suffix = _key(*p), ""
                 _gru(child, prefix, suffix, (collection,) + p, out, consumed)
             else:
-                _walk(child, p, collection, out, consumed, extra)
+                _walk(child, p, collection, out, consumed, extra, paths)
             continue
         arr = np.asarray(child)
         if collection == "batch_stats":
@@ -171,6 +182,8 @@ def _walk(node: Mapping, path: tuple, collection: str, out: dict,
             continue                    # left unconsumed: reported below
         out[_key(*path, leaf)] = _t(value)
         consumed.add((collection,) + p)
+        if paths is not None:
+            paths[_key(*path, leaf)] = "/".join(p)
 
 
 def _leaves(tree: Mapping, path: tuple = ()) -> set:
@@ -185,7 +198,8 @@ def _leaves(tree: Mapping, path: tuple = ()) -> set:
 
 def convert_module(variables: Mapping, module: torch.nn.Module, *,
                    params_only: bool = False,
-                   extra: Mapping | None = None) -> dict:
+                   extra: Mapping | None = None,
+                   paths: dict | None = None) -> dict:
     """Flax ``variables`` of one module -> a state dict for the port's
     counterpart ``module`` (which may live on the meta device); with
     ``params_only``, {parameter name: tensor} for a parameter-shaped tree
@@ -193,7 +207,9 @@ def convert_module(variables: Mapping, module: torch.nn.Module, *,
     flax leaf not consumed and on any of ``module``'s parameters (and,
     unless ``params_only``, buffers) not filled, or filled with the wrong
     shape.  ``extra`` maps further parameter leaf names to functions of
-    the flax array giving the port's tensor, under the same name."""
+    the flax array giving the port's tensor, under the same name;
+    ``paths`` (a dict) receives ``_walk``'s map of port keys to flax
+    paths."""
     tensors = (module.named_parameters() if params_only
                else module.state_dict().items())
     expected = {k: tuple(v.shape) for k, v in tensors}
@@ -202,7 +218,7 @@ def convert_module(variables: Mapping, module: torch.nn.Module, *,
     for collection in ("params", "batch_stats"):
         if collection in variables:
             _walk(variables[collection], (), collection, out, consumed,
-                  extra or {})
+                  extra or {}, paths)
     problems = []
     left = sorted("/".join(p) for p in _leaves(variables) - consumed)
     if left:
@@ -361,3 +377,134 @@ def trocr_core_from_flax(params: Mapping, arch) -> dict:
     with torch.device("meta"):
         core = TrOCRCore(arch)
     return convert_module({"params": params}, core)
+
+
+# port modules whose ``weight`` is a flax leaf named ``weight`` (the
+# line generator's equal-lr layers and noise weights)
+_FLAX_WEIGHT = ("EqualConv", "FusedUpsample", "NoiseInjection")
+_FLAX_SCALE = ("GroupNorm", "BatchNorm")
+
+
+def flax_paths(model: torch.nn.Module, names) -> dict[str, str]:
+    """{port parameter name: the JAX path string of its flax leaf}
+    (``affganwriting_tpu/train/schedules.py:_path_str``, e.g.
+    ``style_extractor/conv0/kernel``) for ``names`` of ``model``, whose
+    module names are the flax tree's: ``weight`` is ``kernel`` of a conv or
+    dense, ``scale`` of a norm, ``embedding`` of an embedding, and itself
+    in the line generator's equal-lr layers; every other leaf keeps its
+    name.  Refuses a fused recurrent tensor (one port tensor of several
+    flax leaves)."""
+    modules = dict(model.named_modules())
+    out = {}
+    for name in names:
+        mod_name, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        kind = type(modules[mod_name]).__name__
+        if isinstance(modules[mod_name], (torch.nn.LSTM, torch.nn.GRU)):
+            raise ValueError(f"{name}: a fused recurrent tensor holds "
+                             "several flax leaves")
+        if leaf == "weight":
+            leaf = ("scale" if kind in _FLAX_SCALE else
+                    "embedding" if kind == "Embedding" else
+                    "weight" if kind in _FLAX_WEIGHT else "kernel")
+        out[name] = "/".join([*mod_name.split("."), leaf] if mod_name
+                             else [leaf])
+    return out
+
+
+def disc_from_flax(variables: Mapping, module: torch.nn.Module) -> dict:
+    """A flax ``DiscriminatorAP``'s variables (numpy leaves) -> a state
+    dict for the port's: the kernels by the conv rule, and the
+    spectral-norm state ``batch_stats/SpectralNorm_<k>/<conv>/kernel/u``
+    and ``.../sigma`` -> the buffers ``<conv>.u`` and ``<conv>.sigma``."""
+    out = convert_module({"params": variables["params"]}, module,
+                         params_only=True)
+    for node in variables.get("batch_stats", {}).values():
+        for key, value in node.items():
+            conv, leaf, what = key.split("/")
+            if leaf != "kernel" or what not in ("u", "sigma"):
+                raise ValueError(f"not a spectral-norm leaf: {key}")
+            out[f"{conv}.{what}"] = _t(value)
+    expected = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in out.items()}
+    if got != expected:
+        raise ValueError(f"disc_from_flax: port {sorted(expected.items())}, "
+                         f"converted {sorted(got.items())}")
+    return out
+
+
+def _adam_moments(opt_state, params: Mapping) -> tuple[dict, dict, int]:
+    """(mu, nu, count) of a ``partitioned_optimizer`` state: the main and
+    slow groups' Adam moments merged into ``params``-shaped trees (zeros
+    where a group masks a leaf, i.e. the frozen leaves)."""
+    groups = getattr(opt_state, "inner_states", None) or {"main": opt_state}
+    merged = {f: _zeros_tree(params) for f in ("mu", "nu")}
+    count = 0
+    for group in groups.values():
+        adam = _find(group, lambda n: hasattr(n, "mu") and hasattr(n, "nu"))
+        if adam is None:
+            continue
+        count = int(np.asarray(adam.count))
+        for f in ("mu", "nu"):
+            _merge(getattr(adam, f), merged[f])
+    return merged["mu"], merged["nu"], count
+
+
+def _zeros_tree(tree: Mapping) -> dict:
+    return {k: _zeros_tree(v) if isinstance(v, Mapping)
+            else np.zeros(np.shape(v), np.float32) for k, v in tree.items()}
+
+
+def _merge(src, dst: dict) -> None:
+    for k, v in src.items():
+        if type(v).__name__ == "MaskedNode":     # optax: not in this group
+            continue
+        if isinstance(v, Mapping):
+            _merge(v, dst[k])
+        else:
+            dst[k] = np.asarray(v, np.float32)
+
+
+def line_state_from_flax(jax_state, state) -> None:
+    """Load a JAX ``LineState`` with numpy leaves (``jax.tree.map(
+    np.asarray, state)``) into the port's ``LineState`` ``state`` (from
+    ``LineGanTrainer.init_state``, same widths) in place: ``main_params``,
+    ``hwr_params`` and ``model_stats`` into ``model``; ``disc_params`` and
+    ``disc_stats`` into ``disc``; ``ae_params`` into ``ae``; both Adam
+    states (moments, counts) and ``step``.
+
+    Asserts that the main tree maps one flax leaf to one port tensor
+    (``balance_combine`` takes a mean per leaf, so a fused tensor would
+    change its result): the converter's recorded paths of the main
+    parameters equal ``flax_paths`` and cover every flax main leaf."""
+    model, params = state.model, {**jax_state.main_params,
+                                  "hwr": jax_state.hwr_params}
+    variables = {"params": params}
+    if jax_state.model_stats:
+        variables["batch_stats"] = jax_state.model_stats
+    recorded: dict = {}
+    sd = convert_module(variables, model, extra=_LINE_LEAVES, paths=recorded)
+    names = list(state.main_params())
+    want = flax_paths(model, names)
+    got = {n: recorded.get(n) for n in names}
+    if got != want or len(_leaves(jax_state.main_params)) != len(names):
+        raise ValueError("the main tree does not map one flax leaf to one "
+                         f"port tensor: {sorted(set(got.items()) ^ set(want.items()))}")
+    model.load_state_dict(sd, strict=True)
+    state.disc.load_state_dict(disc_from_flax(
+        {"params": jax_state.disc_params,
+         "batch_stats": jax_state.disc_stats}, state.disc), strict=True)
+    state.ae.load_state_dict(convert_module(
+        {"params": jax_state.ae_params}, state.ae), strict=True)
+
+    mu, nu, count = _adam_moments(jax_state.main_opt, params)
+    conv = [convert_module({"params": t}, model, params_only=True,
+                           extra=_LINE_LEAVES) for t in (mu, nu)]
+    opt = state.main_opt
+    osd = opt.opt.state_dict()
+    osd["state"] = {i: {"step": torch.tensor(float(count)),
+                        "exp_avg": conv[0][n], "exp_avg_sq": conv[1][n]}
+                    for i, n in enumerate(opt.trained)}
+    opt.load_state_dict({"opt": osd, "count": count})
+    state.disc_opt.load_state_dict(optimizer_from_flax(
+        jax_state.disc_opt, state.disc, state.disc_opt))
+    state.step = int(np.asarray(jax_state.step))

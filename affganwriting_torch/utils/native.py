@@ -1,14 +1,17 @@
 """ctypes loader of the native word-image preprocessing (``native/
 preprocess.cpp`` at the root of the checkout).
 
-The port's copy of the part of ``affganwriting_tpu/utils/native.py`` that
-``data/words.py`` uses.  Build once with
+The port's copy of the parts of ``affganwriting_tpu/utils/native.py`` that
+``data/words.py`` and ``data/line_augment.py`` use: the word preprocessing,
+the batched Otsu foreground masks and the batched mesh warp.  Build once
+with
 
     python -m affganwriting_torch.utils.native build
 
 (one ``g++`` call, OpenMP) into ``build/native/`` at the root of the
-checkout; ``preprocess_word_image`` then takes it for uint8 images and the
-numpy version otherwise.  Nothing builds at import.
+checkout; ``preprocess_word_image`` then takes it for uint8 images, and
+``foreground_mask`` and ``grid_warp_line`` for every image; without it
+they take their numpy and scipy versions.  Nothing builds at import.
 """
 
 from __future__ import annotations
@@ -57,6 +60,11 @@ def load():
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
         ctypes.c_int]
+    f32p, i32 = ctypes.POINTER(ctypes.c_float), ctypes.c_int
+    lib.otsu_fg_mask_batch.argtypes = [f32p, i32, i32, i32, f32p]
+    lib.grid_warp_batch.argtypes = [f32p, i32, i32, i32, f32p, f32p, i32,
+                                    i32, ctypes.c_float, f32p]
+    lib.otsu_fg_mask_batch.restype = lib.grid_warp_batch.restype = None
     _lib = lib
     return lib
 
@@ -78,6 +86,42 @@ def preprocess_words_native(images: np.ndarray, out_h: int = 64,
     lib.preprocess_words(
         images.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n, h, w,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), out_h, out_w)
+    return out
+
+
+def _f32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def otsu_fg_mask_native(imgs: np.ndarray) -> np.ndarray | None:
+    """Batched Otsu foreground masks: (B, H, W) [0, 1] pages, ink dark ->
+    {0, 1} float32.  None when the library is not built."""
+    lib = load()
+    if lib is None:
+        return None
+    imgs = np.ascontiguousarray(imgs, np.float32)
+    b, h, w = imgs.shape
+    out = np.empty_like(imgs)
+    lib.otsu_fg_mask_batch(_f32p(imgs), b, h, w, _f32p(out))
+    return out
+
+
+def grid_warp_native(imgs: np.ndarray, dy_nodes: np.ndarray,
+                     dx_nodes: np.ndarray, cval: float = 1.0
+                     ) -> np.ndarray | None:
+    """Batched mesh warp: imgs (B, H, W), each image's node offsets (B, GH,
+    GW).  None when the library is not built."""
+    lib = load()
+    if lib is None:
+        return None
+    imgs = np.ascontiguousarray(imgs, np.float32)
+    dy_nodes = np.ascontiguousarray(dy_nodes, np.float32)
+    dx_nodes = np.ascontiguousarray(dx_nodes, np.float32)
+    b, h, w = imgs.shape
+    gh, gw = dy_nodes.shape[1:]
+    out = np.empty_like(imgs)
+    lib.grid_warp_batch(_f32p(imgs), b, h, w, _f32p(dy_nodes),
+                        _f32p(dx_nodes), gh, gw, float(cval), _f32p(out))
     return out
 
 

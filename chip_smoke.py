@@ -102,7 +102,23 @@ non-zero before printing any result.  Phases, each fatal on failure:
    published widths with ``cf_synth_charSpecMulti``'s ``char_style_dim``
    16 and ``max_gen_length`` 128: ``extract_style`` of 16 lines of 64 x 512
    (``a_batch_size`` 2) and ``generate`` of 16 lines, medians of 5, peak
-   memory, parameters, no kernel launched.
+   memory, parameters, no kernel launched;
+12. the line GAN: (a) each lesson step (count, auto, auto-gen, no-step
+   gen, gen, disc, valid) of a small f32 ``LineGanTrainer`` on the card
+   against the CPU from one state (losses, the updated main tree and D,
+   D's ``u``/``sigma``, ``LINE_TOL``; the gradient each stepping lesson
+   hands its optimizer, per leaf, ``LINE_GRAD_TOL``); (b) ``LineGanTrainer`` at the
+   published widths with ``cf_synth_charSpecMulti`` (4 lines of 64 x 512):
+   a warm-up rotation of the seven-lesson curriculum and two timed ones
+   (median ms per lesson), ``validate``, peak memory, parameter counts;
+   losses finite, the HWR, its BatchNorm statistics and the AE
+   bit-unchanged, D's ``u`` moved, the no-step stash consumed at auto-gen,
+   no kernel launched; (c) ``cli/train_line --config
+   configs/cf_synth_charSpecMulti.json`` for 7 iterations, the checkpoint
+   restored bit for bit (Adam, SWA, iteration), 2 more iterations resumed,
+   ``validate``, ``cli/get_styles --ckpt``, ``generate_lines`` of 16 texts
+   (median of 5, no kernel launched), ``serve/app.py --selftest --ckpt``
+   (PNG decoded back to the same page).
 
 Each phase prints its seconds.  The last lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
@@ -1791,6 +1807,515 @@ def phase_line_full(torch, card: str, counts, zero):
     return out
 
 
+LINE_SMALL = dict(n_class=12, style_dim=16, max_gen_length=32,
+                  char_style_dim=4)
+# phase 12a's limits, card against CPU (f32, TF32 off): losses 1e-4 of
+# max(1, |CPU|); parameters after the update 1e-6 absolute (the warmed
+# Adam's 4th update, b1 0.5, is lr * 0.53 * (mu + g) / sqrt(nu / 0.004)
+# ~ 2.9e-4 * (mu + g) at lr 2e-4, ~3e-6, the moments' part the same on
+# both sides: this holds Adam's arithmetic, not the gradient); u/sigma
+# 1e-5
+LINE_TOL = {"loss": 1e-4, "param": 1e-6, "sn": 1e-5}
+# the gradient each stepping lesson hands its optimizer (after the clip
+# and the balance), per leaf in relative L2, card against CPU.  Readings
+# on an H100 over runs: count 1.0e-3-4.2e-3, auto 1.8e-3-1.6e-2,
+# auto-gen 9.1e-4-2.0e-3, gen 3.4e-4-4.0e-4, disc 9.3e-6-1.7e-5.  The
+# worst leaves of count and auto are the style encoder's GroupNorm and
+# first conv, whose gradients are cancelled sums (norm ~5e-4 in auto)
+# that f32 and the card's reduction order move by up to ~1e-2; the CTC
+# gradient in gen and auto-gen is ill-conditioned too
+# (tests/test_torch_line_rotation.py).  A per-leaf scale off by more
+# than the limit fails.
+LINE_GRAD_TOL = {"count": 5e-2, "auto": 1e-1, "auto-gen": 2e-2,
+                 "gen": 5e-3, "disc": 1e-3}
+# the no-step lesson's stashed gradients, relative L2 over the main tree:
+# f32 puts the CTC one ~1e-3 from f64 on either device (the same reading
+# as tests/test_torch_line_rotation.py's), hinge G ~1e-5
+STASH_TOL = {"g_ctc": 5e-3, "g_adv": 1e-4}
+
+
+class _ZeroNoise:
+    """Inside the block the line generator's noise injections add nothing
+    (their inputs' noise times 0): the card's and the CPU's generators
+    draw different noise, and a noise weight's gradient is the noise."""
+
+    def __enter__(self):
+        from affganwriting_torch.models.line import spaced_gen
+
+        self.cls, self.orig = spaced_gen.NoiseInjection, \
+            spaced_gen.NoiseInjection.forward
+        orig = self.orig
+        self.cls.forward = lambda m, x, noise: orig(m, x, noise * 0)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.orig
+
+
+def _small_line_trainer(torch, device):
+    """``LineGanTrainer`` at phase 12a's size (12 classes, style 16,
+    generator 32, D dim 8, AE dim 8, spaced length 32, char_style_dim 4),
+    its modules drawn from the seed, dropout off, its Adam moments warmed
+    from the seed: the same state on every device."""
+    from affganwriting_torch.models.line.autoencoder import Autoencoder
+    from affganwriting_torch.models.line.container import HWWithStyle
+    from affganwriting_torch.models.line.discriminator import DiscriminatorAP
+    from affganwriting_torch.train.line_trainer import LineGanTrainer
+
+    tr = LineGanTrainer(**LINE_SMALL, seed=SEED, device=device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        tr.model = HWWithStyle(gen_dim=32, **LINE_SMALL)
+        tr.disc = DiscriminatorAP(dim=8)
+        tr.ae = Autoencoder(dim=8)
+    tr.train_dropout = False
+    state = tr.init_state()
+    g = torch.Generator().manual_seed(SEED)
+    for opt, named in ((state.main_opt.opt, state.main_opt.trained),
+                       (state.disc_opt, None)):
+        params = [p for grp in opt.param_groups for p in grp["params"]]
+        for p in params:
+            opt.state[p] = {
+                "step": torch.tensor(3.0),
+                "exp_avg": (torch.randn(p.shape, generator=g) * 1e-2).to(p),
+                "exp_avg_sq": (torch.rand(p.shape, generator=g) * 9e-4
+                               + 1e-4).to(p)}
+    state.main_opt.count = 3
+    return tr, state
+
+
+def _line_lessons(torch, tr, state, batch):
+    """Each lesson step once from (a copy of) ``state``: {lesson: (losses,
+    the state after it, {name: the gradient handed to the optimizer} or
+    None where no optimizer steps)}; the no-step gen lesson's gradients
+    feed auto-gen."""
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    log = []
+
+    def hook(opt, args, kwargs):
+        log.append({id(p): p.grad.detach().clone()
+                    for grp in opt.param_groups for p in grp["params"]
+                    if p.grad is not None})
+
+    handle = register_optimizer_step_pre_hook(hook)
+    try:
+        out = _line_lesson_steps(torch, tr, state, batch, log)
+    finally:
+        handle.remove()
+    return out
+
+
+def _line_lesson_steps(torch, tr, state, batch, log):
+    import copy
+
+    def grads(lesson, s, kind=None):
+        """The optimizer steps logged since the last call: one by ``kind``
+        ("main" or "disc") of ``s``, as {name: gradient}, or none."""
+        entries = list(log)
+        log.clear()
+        if kind is None:
+            if entries:
+                raise AssertionError(f"{lesson}: an optimizer stepped")
+            return None
+        named = (s.main_params() if kind == "main"
+                 else dict(s.disc.named_parameters()))
+        if len(entries) != 1:
+            raise AssertionError(f"{lesson}: {len(entries)} optimizer steps")
+        got = {n: entries[0][id(p)] for n, p in named.items()
+               if id(p) in entries[0]}
+        if not got:
+            raise AssertionError(f"{lesson}: the {kind} optimizer did not "
+                                 "step")
+        return got
+
+    image, label, lengths = tr._put_batch(batch)
+    spaced = tr.spaced_label(state, batch)
+    oh = tr._spaced_onehot(spaced)
+    gt = tr._put(tr.count_targets(spaced, batch["label"],
+                                  batch["label_lengths"]))
+    fg = torch.ones_like(image)
+    style = tr._put(tr._extract(state, image))
+    g = tr.generator
+    out = {}
+    log.clear()
+    s, m = tr.count_step(copy.deepcopy(state), image, label, lengths, gt, g)
+    out["count"] = (m, s, grads("count", s, "main"))
+    s, m, _ = tr.auto_step(copy.deepcopy(state), image, label, lengths, oh,
+                           g, fg)
+    out["auto"] = (m, s, grads("auto", s, "main"))
+    m, g_ctc, g_adv, _ = tr.gen_grads_step(state, label, lengths, style, g)
+    out["no-step gen"] = (m, state, grads("no-step gen", state))
+    out["stash"] = {"g_ctc": g_ctc, "g_adv": g_adv}
+    s, m, _ = tr.auto_gen_step(copy.deepcopy(state), image, label, lengths,
+                               oh, g, (0.6, 0.5, 0.4), g_ctc, g_adv, fg)
+    out["auto-gen"] = (m, s, grads("auto-gen", s, "main"))
+    s, m, _ = tr.gen_step(copy.deepcopy(state), label, lengths, style, g,
+                          0.6)
+    out["gen"] = (m, s, grads("gen", s, "main"))
+    s, m = tr.disc_step(copy.deepcopy(state), image, label, lengths, style,
+                        g)
+    out["disc"] = (m, s, grads("disc", s, "disc"))
+    m = tr.valid_step(state, image, label, lengths, oh,
+                      torch.Generator(tr.device).manual_seed(0), fg, gt)
+    out["valid"] = (m, state, grads("valid", state))
+    return out
+
+
+def _rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| in f64 (absolute where ``want`` is 0)."""
+    d = float((got.double() - want.double()).norm())
+    n = float(want.double().norm())
+    return d / n if n > 0 else d
+
+
+def phase_line_train_reference(torch):
+    """12 (a) Each of the seven lesson steps (count, auto, auto-gen,
+    no-step gen, gen, disc, valid) of a small f32 ``LineGanTrainer`` on the
+    card against the CPU, from one state (the seed's weights, warmed Adam
+    moments, dropout off, generator noise times 0): losses, the updated
+    main tree and D, D's ``u``/``sigma`` (``LINE_TOL``), the gradient
+    each stepping lesson hands its optimizer (``LINE_GRAD_TOL``), the
+    no-step lesson's stashed gradients (``STASH_TOL``); synthetic lines
+    of 64 x 128, their labels folded into the 12 classes."""
+    import numpy as np
+
+    from affganwriting_torch.data.lines import LineCharset, LineDataset
+
+    ds = LineDataset(LineCharset(), authors=["a000", "a001"],
+                     a_batch_size=2, width=128, label_len=24, seed=SEED)
+    batch = next(ds.batches(2))
+    k = LINE_SMALL["n_class"]
+    batch["label"] = np.where(batch["label"] > 0,
+                              batch["label"] % (k - 1) + 1, 0)
+    with _ZeroNoise():
+        cpu_tr, cpu_state = _small_line_trainer(torch, "cpu")
+        card_tr, card_state = _small_line_trainer(torch, "cuda")
+        want = _line_lessons(torch, cpu_tr, cpu_state, batch)
+        got = _line_lessons(torch, card_tr, card_state, batch)
+    errs = {}
+    stash_want, stash_got = want.pop("stash"), got.pop("stash")
+    for k, tol in STASH_TOL.items():
+        num = sum(float(((stash_got[k][n].cpu() - w) ** 2).sum())
+                  for n, w in stash_want[k].items())
+        den = sum(float((w ** 2).sum()) for w in stash_want[k].values())
+        errs[k] = (num / den) ** 0.5
+        log(f"  stashed {k}: {errs[k]:.3g} relative L2, card vs CPU "
+            f"(limit {tol})")
+        if not errs[k] <= tol:
+            raise AssertionError(f"stashed {k}: card vs CPU {errs[k]}")
+    for lesson, (m_want, s_want, g_want) in want.items():
+        m_got, s_got, g_got = got[lesson]
+        loss = max(abs(float(m_got[k]) - float(v)) / max(1.0, abs(float(v)))
+                   for k, v in m_want.items())
+        pairs = zip([*s_got.model.parameters(), *s_got.disc.parameters()],
+                    [*s_want.model.parameters(), *s_want.disc.parameters()])
+        param = max(float((p.detach().cpu() - q.detach()).abs().max())
+                    for p, q in pairs)
+        sn_got, sn_want = s_got.disc.sn_state(), s_want.disc.sn_state()
+        sn = max(float((sn_got[k].cpu() - v).abs().max())
+                 for k, v in sn_want.items())
+        errs[lesson] = {"loss": loss, "param": param, "sn": sn}
+        limits = dict(LINE_TOL)
+        if g_want is not None:
+            if g_got.keys() != g_want.keys():
+                raise AssertionError(f"line lesson {lesson}: the card's "
+                                     "optimizer stepped other parameters")
+            leaf = {n: _rel_l2(g_got[n].cpu(), w)
+                    for n, w in g_want.items()}
+            worst = max(leaf, key=leaf.get)
+            errs[lesson]["grad"] = leaf[worst]
+            limits["grad"] = LINE_GRAD_TOL[lesson]
+        log(f"  {lesson}: losses {loss:.3g}, parameters {param:.3g}, "
+            f"u/sigma {sn:.3g}"
+            + (f", optimizer's gradient {leaf[worst]:.3g} per leaf (at "
+               f"{worst}, norm {float(g_want[worst].norm()):.3g})"
+               if g_want is not None else "")
+            + f" (card vs CPU; limits {limits})")
+        if any(errs[lesson][k] > limits[k] for k in limits):
+            raise AssertionError(f"line lesson {lesson}: card vs CPU "
+                                 f"{errs[lesson]}")
+    moved = any(not torch.equal(want["disc"][1].disc.sn_state()[k], v)
+                for k, v in cpu_state.disc.sn_state().items())
+    if not moved:
+        raise AssertionError("disc did not move D's u/sigma")
+    return errs
+
+
+def _frozen_snapshot(state) -> dict:
+    sd = {f"model.{k}": v.detach().clone()
+          for k, v in state.model.state_dict().items()
+          if k.startswith("hwr.")}
+    sd.update({f"ae.{k}": v.detach().clone()
+               for k, v in state.ae.state_dict().items()})
+    return sd
+
+
+def phase_line_train(torch, card: str, counts, zero):
+    """12 (b) ``LineGanTrainer`` at the published widths (80 classes, style
+    128, generator 256, the cnn_only HWR with BatchNorm, D at dim 64, the
+    default ``Autoencoder``) with ``configs/cf_synth_charSpecMulti.json``'s
+    ``char_style_dim`` 16 and ``max_gen_length`` 128, f32, random weights
+    from the seed, on synthetic lines (2 authors x ``a_batch_size`` 2, 64 x
+    512): one warm-up rotation of the seven-lesson curriculum, then two
+    timed (CUDA-synchronized wall per iteration, median per lesson), the
+    host part of a lesson on new lines (the HWR's log-probs to the host,
+    the DTW), and one ``validate`` batch; losses finite, the HWR (its BatchNorm
+    statistics included) and the AE bit-unchanged, D's ``u`` moved, the
+    no-step stash consumed at auto-gen; peak memory above the phase's
+    start; parameter counts; no kernel launched."""
+    import numpy as np
+
+    from affganwriting_torch.core.line_config import load_config
+    from affganwriting_torch.data.lines import LineCharset, LineDataset
+    from affganwriting_torch.train.line_trainer import LineGanTrainer
+
+    root = Path(__file__).resolve().parent
+    conf = load_config(str(root / "configs" / "cf_synth_charSpecMulti.json"))
+    charset = LineCharset()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = LineGanTrainer(n_class=charset.n_class, style_dim=128,
+                        max_gen_length=conf["model"]["max_gen_length"],
+                        char_style_dim=conf["model"]["char_style_dim"],
+                        lr=conf["optimizer"]["lr"], seed=SEED)
+    ds = LineDataset(charset, a_batch_size=conf["data_loader"]["a_batch_size"],
+                     width=512, seed=SEED)
+    batches = (b for epoch in range(100) for b in ds.batches(
+        conf["data_loader"]["batch_size"], epoch=epoch))
+    state = tr.init_state()
+    counts_p = {
+        "main": sum(p.numel() for p in state.main_params().values()),
+        "hwr": sum(p.numel() for p in state.model.hwr.parameters()),
+        "disc": sum(p.numel() for p in state.disc.parameters()),
+        "ae": sum(p.numel() for p in state.ae.parameters())}
+    frozen = _frozen_snapshot(state)
+    u0 = state.disc.sn_state()
+    n_rot = len(tr.curriculum.stages[0][1])
+    walls: dict[str, list] = {}
+    zero()
+    it = 0
+    stash = []
+    for rot in range(3):
+        for _ in range(n_rot):
+            batch = next(batches)
+            lesson = ",".join(tr.curriculum.get_lesson(it))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = tr.train_iteration(state, it, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            stash.append((lesson, tr._saved_grads is not None))
+            bad = {k: float(v) for k, v in metrics.items()
+                   if not math.isfinite(float(v))}
+            if bad or not metrics:
+                raise AssertionError(f"iteration {it} ({lesson}): metrics "
+                                     f"{ {k: float(v) for k, v in metrics.items()} }")
+            if rot:
+                walls.setdefault(lesson, []).append(wall)
+            it += 1
+    launches = list(counts())
+    # the host part of a count or auto-gen lesson on new lines: the frozen
+    # HWR's log-probs to the host, then the DTW alignment there
+    from affganwriting_torch.ops.dtw import correct_pred
+
+    hwr_ms, dtw_ms = [], []
+    for _ in range(3):
+        b = next(batches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logp = tr.recognize(state, b["image"])
+        t1 = time.perf_counter()
+        correct_pred(np.exp(logp).transpose(1, 0, 2), b["label"].T[
+            : max(1, int(b["label_lengths"].max()))])
+        t2 = time.perf_counter()
+        hwr_ms.append((t1 - t) * 1e3)
+        dtw_ms.append((t2 - t1) * 1e3)
+    val_batch = next(batches)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    val = tr.validate(state, iter([val_batch]))
+    torch.cuda.synchronize()
+    val_ms = (time.perf_counter() - t) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    changed = [k for k, v in _frozen_snapshot(state).items()
+               if not torch.equal(v, frozen[k])]
+    if changed:
+        raise AssertionError(f"frozen HWR/AE tensors moved: {changed[:5]}")
+    if all(torch.equal(state.disc.sn_state()[k], v) for k, v in u0.items()
+           if k.endswith(".u")):
+        raise AssertionError("D's u did not move")
+    for lesson, pending in stash:
+        want = "no-step" in lesson
+        if pending != want:
+            raise AssertionError(f"the stash after {lesson}: pending "
+                                 f"{pending}")
+    if launches != [0, 0, 0]:
+        raise AssertionError(f"the line train iterations launched "
+                             f"{launches}")
+    if not all(math.isfinite(v) for v in val.values()):
+        raise AssertionError(f"validate {val}")
+    ms = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+    log(f"  LineGanTrainer at full width (char_style_dim "
+        f"{conf['model']['char_style_dim']}, max_gen_length "
+        f"{conf['model']['max_gen_length']}, 4 lines of 64 x 512), median ms "
+        "of two timed rotations: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; validate (1 batch) {val_ms:.3f} ms; rotation "
+        f"{sum(statistics.median(v) * len(v) / 2 for v in walls.values()) * 1e3:.3f} ms")
+    log(f"  a count lesson's host part on 4 new lines: the HWR's log-probs "
+        f"to the host {statistics.median(hwr_ms):.3f} ms, the DTW "
+        f"{statistics.median(dtw_ms):.3f} ms (medians of 3)")
+    log(f"  parameters {counts_p}; peak {peak:.3f} GiB on {card}; HWR, its "
+        f"BatchNorm statistics and the AE bit-unchanged ({len(frozen)} "
+        f"tensors); D's u moved; stash {stash[:n_rot]}; kernel launches "
+        f"{launches}")
+    out = {"lesson_ms": ms, "validate_ms": val_ms, "peak_gib": peak,
+           "hwr_to_host_ms": statistics.median(hwr_ms),
+           "dtw_ms": statistics.median(dtw_ms),
+           "params": counts_p, "launches": launches, "val": val}
+    del tr, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_line_clis(torch, card: str, tmp: str, counts, zero):
+    """12 (c) The user's path through the CLIs, on the card, in ``tmp``:
+    ``cli/train_line --config configs/cf_synth_charSpecMulti.json`` for one
+    rotation (7 iterations, SWA from 5, validation and a sheet at 7, a save
+    of ``latest``), its checkpoint restored bit for bit (Adam, SWA and
+    iteration included), then resumed for 2 iterations more;
+    ``validate``; ``cli/get_styles`` from the checkpoint; ``generate_lines``
+    of 16 texts in library styles (median of 5 after a warm-up); and
+    ``serve/app.py --selftest`` on the checkpoint (the image finite, its
+    PNG bytes decoded back by ``utils/png``'s zlib reader to the same
+    page).  Kernel launches of the generate call counted."""
+    import os
+
+    import numpy as np
+
+    from affganwriting_torch.cli import get_styles, train_line
+    from affganwriting_torch.core.checkpoint import (
+        LineCheckpointManager,
+        line_payload,
+        restore_line_trainer,
+    )
+    from affganwriting_torch.data.lines import LineCharset, LineDataset
+    from affganwriting_torch.gen.line_inference import generate_lines
+    from affganwriting_torch.serve import app
+    from affganwriting_torch.utils.png import decode_gray_png
+
+    root = Path(__file__).resolve().parent
+    logdir = os.path.join(tmp, "line")
+    ckdir = os.path.join(logdir, "ckpt")
+    base = ["--config", str(root / "configs" / "cf_synth_charSpecMulti.json"),
+            "-a", "trainer.save_step_minor=7", "-a", "trainer.val_step=7",
+            "-a", "trainer.save_step=7", "-a", "trainer.swa_start=5",
+            "--val-batches", "1", "--sheet-every", "7",
+            "--restart-rss-gb", "0", "--logdir", logdir]
+    out = {}
+    t = time.perf_counter()
+    _, st = train_line.main(base + ["-a", "trainer.iterations=7"])
+    torch.cuda.synchronize()
+    out["train_7_s"] = time.perf_counter() - t
+    saved = LineCheckpointManager(ckdir).load("latest", "cpu")
+    if saved["iteration"] != 7 or saved["swa"]["count"] != 3:
+        raise AssertionError(f"latest: iteration {saved['iteration']}, SWA "
+                             f"count {saved['swa']['count']}")
+    t = time.perf_counter()
+    tr, payload = restore_line_trainer(ckdir)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t
+    again = line_payload(payload)
+    fields = _compare_payloads(torch, _to_cpu(torch, again), saved)
+    lines = [json.loads(s) for s in open(f"{logdir}/metrics.jsonl")]
+    if not any(r["group"] == "line_valid" for r in lines) or not all(
+            math.isfinite(v) for r in lines for k, v in r.items()
+            if k not in ("group", "step", "time")):
+        raise AssertionError(f"metrics {lines}")
+    sheets = os.listdir(os.path.join(logdir, "sheets"))
+    t = time.perf_counter()
+    charset = LineCharset()
+    val = tr.validate(payload["state"], LineDataset(
+        charset, a_batch_size=2, width=512, seed=SEED + 1).batches(2),
+        max_batches=1)
+    out["validate_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    _, st2 = train_line.main(base + ["-a", "trainer.iterations=9"])
+    torch.cuda.synchronize()
+    out["resume_2_s"] = time.perf_counter() - t
+    resumed = LineCheckpointManager(ckdir).load("latest", "cpu")
+    if resumed["iteration"] != 9 or resumed["swa"]["count"] != 5:
+        raise AssertionError(f"resumed latest: iteration "
+                             f"{resumed['iteration']}, SWA count "
+                             f"{resumed['swa']['count']}")
+    lib_path = os.path.join(tmp, "styles.pkl")
+    t = time.perf_counter()
+    library = get_styles.main(["--ckpt", ckdir, "--out", lib_path,
+                               "--n-authors", "8", "--width", "512",
+                               "--eval-writer-id"])
+    torch.cuda.synchronize()
+    out["get_styles_s"] = time.perf_counter() - t
+    tr, payload = restore_line_trainer(ckdir, name="best" if os.path.exists(
+        os.path.join(ckdir, "best")) else "latest")
+    texts = [" ".join(WORDS[i % 8: i % 8 + 3]) for i in range(16)]
+    styles = library.styles[np.arange(16) % len(library.styles)]
+    generate_lines(tr, payload["state"], texts, styles, charset)
+    zero()
+    lines_out = generate_lines(tr, payload["state"], texts, styles, charset)
+    out["launches_generate_call"] = list(counts())
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        generate_lines(tr, payload["state"], texts, styles, charset)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    out["generate_16_ms"] = statistics.median(walls) * 1e3
+    if lines_out.shape != (16, 64, 4 * tr.max_gen_length, 1) or \
+            not np.isfinite(lines_out).all():
+        raise AssertionError(f"generate_lines {lines_out.shape}")
+    del tr, payload
+    t = time.perf_counter()
+    res = app.main(["--selftest", "--ckpt", ckdir])
+    out["selftest_s"] = time.perf_counter() - t
+    decoded = decode_gray_png(res["png"])
+    if res["image"].shape[:2] != (1, 64) or \
+            not np.isfinite(res["image"]).all() or \
+            not np.array_equal(decoded, res["page"]):
+        raise AssertionError(f"selftest image {res['image'].shape}, PNG "
+                             "decoded to another page")
+    if out["launches_generate_call"] != [0, 0, 0]:
+        raise AssertionError(f"generate_lines launched "
+                             f"{out['launches_generate_call']}")
+    log(f"  train_line --config cf_synth_charSpecMulti: 7 iterations "
+        f"{out['train_7_s']:.1f} s (build, first call and saves included); "
+        f"restore {out['restore_s']:.2f} s, bit-equal to the save in "
+        f"{fields} fields (Adam, SWA count 3, iteration 7); sheets "
+        f"{sorted(sheets)}; resume for 2 more {out['resume_2_s']:.1f} s "
+        f"(iteration 9, SWA count 5); validate {val}; get_styles "
+        f"{len(library.styles)} styles in {out['get_styles_s']:.1f} s; "
+        f"generate_lines 16 x (64, {4 * 128}) {out['generate_16_ms']:.3f} "
+        f"ms (median of 5) on {card}, launches "
+        f"{out['launches_generate_call']}; selftest {res['image'].shape}, "
+        f"PNG {len(res['png'])} bytes decoded equal, emuru "
+        f"{res['emuru'][:40]}")
+    out.update(fields=fields, validate=val, styles=len(library.styles),
+               png_bytes=len(res["png"]))
+    torch.cuda.empty_cache()
+    return out
+
+
+def _to_cpu(torch, tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(torch, v) for v in tree)
+    return tree
+
+
 def phase_entry_and_benches(torch, counts, zero):
     """(e) ``entry()``, ``cli/bench --batch 256 --quick`` and
     ``cli/bench_kernels`` at batch 256."""
@@ -2011,8 +2536,24 @@ def main() -> int:
     line_ref = timed("11a", phase_line_reference, torch)
     log("[11b] HWWithStyle at full width (cf_synth_charSpecMulti)")
     line = timed("11b", phase_line_full, torch, smi, counts, zero)
+    log("[12] the line GAN: lessons, trainer, CLIs and serving")
+    log("[12a] each lesson step of a small f32 LineGanTrainer, card vs CPU")
+    line_train_ref = timed("12a", phase_line_train_reference, torch)
+    log("[12b] LineGanTrainer at full width (cf_synth_charSpecMulti)")
+    line_train = timed("12b", phase_line_train, torch, smi, counts, zero)
+    tmp12 = tempfile.mkdtemp(prefix="phase12_", dir=root)
+    try:
+        log("[12c] train_line -> resume -> validate -> get_styles -> "
+            "generate_lines -> app --selftest")
+        line_clis = timed("12c", phase_line_clis, torch, smi, tmp12, counts,
+                          zero)
+    finally:
+        shutil.rmtree(tmp12, ignore_errors=True)
     for k, key in (("in_relu", 0), ("phase_head", 1)):
         row = kernels[[r["name"] for r in kernels].index(k)]
+        row["launches_line_train_iteration"] = line_train["launches"][key]
+        row["launches_line_serve_call"] = \
+            line_clis["launches_generate_call"][key]
         row["launches_int8_generate_call"] = \
             int8["launches_int8_generate_call"][key]
         row["launches_line_path"] = line["launches"][key]
@@ -2037,7 +2578,9 @@ def main() -> int:
                     "trocr": trocr, "teacher": teacher, "htr": htr,
                     "benches": benches, "int8": int8,
                     "int8_tools": int8_tools, "line_reference": line_ref,
-                    "line": line, "phase_s": seconds,
+                    "line": line, "line_train_reference": line_train_ref,
+                    "line_train": line_train, "line_clis": line_clis,
+                    "phase_s": seconds,
                     "build_s": build_s}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -21,10 +21,13 @@ import numpy as np
 from affganwriting_torch.cli import (
     evaluate,
     generate_word,
+    get_styles,
     inspect_ckpt,
     quality_report,
+    train_line,
     train_word,
 )
+from affganwriting_torch.serve import app
 from affganwriting_torch.core.config import VOCAB
 from affganwriting_torch.models.style_encoders import available
 from affganwriting_torch.train.state import param_count
@@ -42,9 +45,9 @@ def no_tensorboard(monkeypatch):
 
 @pytest.mark.parametrize(
     "cli", [train_word, generate_word, inspect_ckpt, evaluate,
-            quality_report],
+            quality_report, train_line, get_styles, app],
     ids=["train_word", "generate_word", "inspect_ckpt", "evaluate",
-         "quality_report"])
+         "quality_report", "train_line", "get_styles", "app"])
 def test_help(cli, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["--help"])
@@ -58,10 +61,37 @@ def test_help(cli, capsys):
     (["--recognizer", "trocr", "--trocr-preset", "tiny", "--trocr-ckpt",
       "ckpt"], "cannot load into --trocr-preset tiny"),
     (["--recognizer", "trocr", "--trocr-ckpt", "no/such/dir"],
-     "not a readable local HF checkpoint directory")])
+     "not a readable local HF checkpoint directory"),
+    (["train_line", "--xml-root", "xml"], "item 11"),
+    (["train_line", "--mesh", "auto"], "item 10"),
+    (["train_line", "--pretrained-hwr", "hwr_final"],
+     r"cli/train_hwr \(ROADMAP Queue 1 item 11\)"),
+    (["train_line", "--pretrained-ae", "ae_final"],
+     r"cli/train_auto \(ROADMAP Queue 1 item 11\)"),
+    (["train_line", "--config", "configs/cf_synth_charSpecMulti.json", "-a",
+      "trainer.encoder_weights=ae_final"], r"cli/train_auto"),
+    (["line_trainer", "pretrained_hwr"], r"cli/train_hwr"),
+    (["line_trainer", "pretrained_ae"], r"cli/train_auto")])
 def test_unported_flags_name_their_roadmap_item(flags, item):
     """The refusals: ``--mesh`` names the ROADMAP item it waits for; the
-    TrOCR flags are refused by the JAX CLI's own rules."""
+    TrOCR flags are refused by the JAX CLI's own rules; ``train_line``'s
+    IAM line data, ``--mesh`` and the pretrained HWR and AE (flags, config
+    keys, or the trainer's own arguments) name theirs."""
+    from pathlib import Path
+
+    from affganwriting_torch.train.line_trainer import LineGanTrainer
+
+    if flags[0] == "train_line":
+        root = Path(__file__).resolve().parents[1]
+        argv = [str(root / a) if a.startswith("configs/") else a
+                for a in flags[1:]]
+        with pytest.raises(SystemExit, match=item):
+            train_line.main(argv + ["--device", "cpu"])
+        return
+    if flags[0] == "line_trainer":
+        with pytest.raises(SystemExit, match=item):
+            LineGanTrainer(device="cpu", **{flags[1]: "ckpt"})
+        return
     with pytest.raises(SystemExit, match=item):
         train_word.main(flags + ["--device", "cpu"])
     if flags[0] == "--mesh":

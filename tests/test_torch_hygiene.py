@@ -83,9 +83,23 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
 
 def test_trainer_and_clis_need_a_card_or_an_explicit_cpu(tmp_path,
                                                          monkeypatch):
-    """The trainer, ``train_word``'s builder and the other CLIs (the
-    teacher phase's two and ``train_htr`` among them) and the int8 A/B
-    tools raise before they build or write anything."""
+    """The trainers (the word and the line GAN's), ``train_word``'s
+    builder and the other CLIs (the teacher phase's two, ``train_htr``,
+    ``train_line`` and ``get_styles`` among them), the int8 A/B tools,
+    ``restore_line_trainer``, ``extract_styles``, ``generate_lines`` and
+    the app's backend raise before they build or write anything."""
+    import json
+    from types import SimpleNamespace
+
+    from affganwriting_torch.cli import get_styles, train_line
+    from affganwriting_torch.core.checkpoint import restore_line_trainer
+    from affganwriting_torch.gen.line_inference import (
+        extract_styles,
+        generate_lines,
+    )
+    from affganwriting_torch.serve import app
+    from affganwriting_torch.train.line_trainer import LineGanTrainer
+
     from affganwriting_torch.cli import (
         generate_word,
         inspect_ckpt,
@@ -128,6 +142,26 @@ def test_trainer_and_clis_need_a_card_or_an_explicit_cpu(tmp_path,
                 run()
     assert not any((tmp_path / d).exists()
                    for d in ("run", "gen", "ck", "tp", "tc", "htr"))
+    line_ck = tmp_path / "line_ck"
+    line_ck.mkdir()
+    (line_ck / "latest.config.json").write_text(json.dumps(
+        LineGanTrainer(device="cpu").config_dict))
+    on_card = SimpleNamespace(device=torch.device("cuda"))
+    for kw, extra in (({}, []), ({"device": "cuda"}, ["--device", "cuda"])):
+        for run in (
+                lambda: LineGanTrainer(**kw),
+                lambda: restore_line_trainer(str(line_ck), **kw),
+                lambda: extract_styles(on_card, None, []),
+                lambda: generate_lines(on_card, None, ["a"], None, None),
+                lambda: train_line.main(
+                    ["--logdir", str(tmp_path / "line")] + extra),
+                lambda: get_styles.main(
+                    ["--out", str(tmp_path / "s.pkl")] + extra),
+                lambda: app._load_backend(**kw),
+                lambda: app.main(["--selftest"] + extra)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                run()
+    assert not any((tmp_path / d).exists() for d in ("line", "s.pkl"))
 
 
 def test_fid_and_evaluation_clis_need_a_card_or_an_explicit_cpu(tmp_path):

@@ -289,3 +289,271 @@ def load_line(module: torch.nn.Module, variables) -> torch.nn.Module:
     module.load_state_dict(line_from_flax(to_numpy_tree(variables), module),
                            strict=True)
     return module.eval().requires_grad_(False)
+
+
+# the line GAN's small trainer: 12 classes, style 16, generator 32, D dim
+# 8, AE dim 8, spaced length 32 (lines of 64 x 128)
+LINE_GAN = dict(n_class=LINE_CLASSES, style_dim=16, max_gen_length=32)
+
+
+@contextlib.contextmanager
+def deterministic_line_gan():
+    """Inside the block flax's ``Dropout`` is the identity and both
+    packages' line-generator ``NoiseInjection`` adds its noise times 0:
+    the packages' random streams cannot be matched, and a noise weight's
+    gradient is the noise itself.  Nothing in either package changes
+    outside the block; jitted JAX functions keep what they traced."""
+    import flax.linen as nn
+
+    import affganwriting_tpu.models.line.spaced_gen as jsg
+    import affganwriting_torch.models.line.spaced_gen as tsg
+
+    saved = (nn.Dropout.__call__, jsg.NoiseInjection.__call__,
+             tsg.NoiseInjection.forward)
+    jnoise, tnoise = saved[1], saved[2]
+    nn.Dropout.__call__ = lambda self, x, *a, **k: x
+    jsg.NoiseInjection.__call__ = lambda self, x, noise: jnoise(
+        self, x, noise * 0)
+    tsg.NoiseInjection.forward = lambda self, x, noise: tnoise(
+        self, x, noise * 0)
+    try:
+        yield
+    finally:
+        (nn.Dropout.__call__, jsg.NoiseInjection.__call__,
+         tsg.NoiseInjection.forward) = saved
+
+
+def _warm_opt(opt_state, seed: int):
+    """An optax state with Adam's moments drawn from ``seed`` (mu N(0,
+    1e-2), nu U(1e-4, 1e-3)) and every count at 3: a first update then
+    moves each parameter smoothly in its gradient, where a fresh Adam
+    moves it by lr * sign(g).  That update (the 4th, b1 0.5, b2 0.999) is
+    lr * 0.53 * (mu + g) / sqrt(nu / 0.004) ~ 2.9e-4 * (mu + g) at lr
+    2e-4: ~3e-6, the moments' part the same on both sides.  So the state
+    after a step holds the optimizer's arithmetic, and the gradients are
+    held where they enter the optimizers (``_recording``,
+    ``port_opt_grads``)."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        names = [str(getattr(k, "name", getattr(k, "key", k)))
+                 for k in path]
+        a = np.asarray(leaf)
+        if "mu" in names:
+            return jnp.asarray(rng.normal(0, 1e-2, a.shape).astype(a.dtype))
+        if "nu" in names:
+            return jnp.asarray(rng.uniform(1e-4, 1e-3, a.shape)
+                               .astype(a.dtype))
+        if a.dtype == np.int32:
+            return jnp.full(a.shape, 3, jnp.int32)
+        return leaf
+
+    return jax.tree_util.tree_map_with_path(fill, opt_state)
+
+
+def _recording(tx, log: list):
+    """Optax transformation ``tx`` that first appends every gradient it is
+    given to ``log`` (on the host; read after ``jax.effects_barrier()``)."""
+    import optax
+
+    def update(grads, state, params=None):
+        jax.debug.callback(log.append, grads)
+        return tx.update(grads, state, params)
+
+    return optax.GradientTransformation(tx.init, update)
+
+
+@contextlib.contextmanager
+def port_opt_grads():
+    """Inside the block every torch optimizer step first appends
+    ``{id(parameter): its gradient}`` to the yielded list: the gradients
+    that reach the port's optimizers (``PartitionedAdam`` steps its torch
+    Adam with them as ``.grad``)."""
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    log = []
+
+    def hook(opt, args, kwargs):
+        log.append({id(p): p.grad.detach().clone()
+                    for group in opt.param_groups for p in group["params"]
+                    if p.grad is not None})
+
+    handle = register_optimizer_step_pre_hook(hook)
+    try:
+        yield log
+    finally:
+        handle.remove()
+
+
+def named_grads(entry: dict, named: dict) -> dict:
+    """One ``port_opt_grads`` entry -> {name: gradient} for those
+    parameters of ``named`` ({name: parameter}) that the step covered."""
+    return {n: entry[id(p)] for n, p in named.items() if id(p) in entry}
+
+
+def port_main_grads(jax_grads, js, ts) -> dict:
+    """A JAX main-tree gradient -> {port name: tensor} over the port's
+    main tree (the converter's layouts; the HWR's slot filled with its
+    parameters, then dropped)."""
+    from affganwriting_torch.utils.from_flax import _LINE_LEAVES
+
+    tree = {**to_numpy_tree(jax_grads), "hwr": to_numpy_tree(js.hwr_params)}
+    out = convert_module({"params": tree}, ts.model, params_only=True,
+                         extra=_LINE_LEAVES)
+    return {n: out[n] for n in ts.main_params()}
+
+
+def port_disc_grads(jax_grads, js, ts) -> dict:
+    """A JAX D gradient -> {port name: tensor} over D's parameters."""
+    from affganwriting_torch.utils.from_flax import disc_from_flax
+
+    out = disc_from_flax({"params": to_numpy_tree(jax_grads),
+                          "batch_stats": to_numpy_tree(js.disc_stats)},
+                         ts.disc)
+    return {n: out[n] for n, _ in ts.disc.named_parameters()}
+
+
+def leaf_grad_errors(got: dict, want: dict) -> dict:
+    """{name: ||got - want|| / ||want||} per leaf (relative L2; a leaf
+    whose reference gradient is exactly 0 reads ||got||, in absolute)."""
+    assert got.keys() == want.keys(), sorted(set(got) ^ set(want))
+    out = {}
+    for n, w in want.items():
+        w = torch.as_tensor(w, dtype=torch.float64)
+        d = float((got[n].detach().cpu().double() - w).norm())
+        nw = float(w.norm())
+        out[n] = d / nw if nw > 0 else d
+    return out
+
+
+def check_opt_grads(jt, js, port_log: list, ts, tol: dict, what) -> list:
+    """Hold the updates since ``jt.opt_grads`` and ``port_log`` were
+    cleared, in order: the same optimizers stepped in both packages, each
+    by the gradients of every trained parameter, within ``tol[kind]`` per
+    leaf (``leaf_grad_errors``); returns their kinds ("main" or "disc").
+    ``js`` and ``ts`` are JAX and port states of the pair (for the
+    converters and the port's parameters)."""
+    jax.effects_barrier()
+    jlog = {k: list(v) for k, v in jt.opt_grads.items()}
+    disc = dict(ts.disc.named_parameters())
+    kinds = []
+    for entry in port_log:
+        kind = "disc" if id(next(iter(disc.values()))) in entry else "main"
+        kinds.append(kind)
+        if kind == "main":
+            got = named_grads(entry, ts.main_params())
+            assert set(got) == set(ts.main_opt.trained), what
+            want = port_main_grads(jlog["main"].pop(0), js, ts)
+            want = {n: want[n] for n in got}
+        else:
+            got = named_grads(entry, disc)
+            want = port_disc_grads(jlog["disc"].pop(0), js, ts)
+        errs = leaf_grad_errors(got, want)
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= tol[kind], (what, kind, worst, errs[worst])
+        assert any(float(g.abs().max()) > 0 for g in got.values()), what
+    assert not jlog["main"] and not jlog["disc"], (what, kinds)
+    return kinds
+
+
+def line_batch(b: int = 4, t: int = 8, width: int = 128, seed: int = 0):
+    """A batch of ``b`` random lines (64 x ``width``, NHWC) and labels of
+    the small classes, lengths from t/2 to t."""
+    rng = np.random.default_rng(seed)
+    img = np.tanh(rng.normal(size=(b, 64, width, 1))).astype(np.float32)
+    label = rng.integers(1, LINE_CLASSES, (b, t)).astype(np.int32)
+    lengths = rng.integers(t // 2, t + 1, (b,)).astype(np.int32)
+    label[np.arange(t)[None, :] >= lengths[:, None]] = 0
+    return {"image": img, "label": label, "label_lengths": lengths}
+
+
+def line_trainer_pair(char_style_dim: int, seed: int = 0, **trainer_kw):
+    """(JAX trainer, its ``LineState``, the port's trainer, its state) at
+    ``LINE_GAN``'s size: every flax leaf drawn from numpy (noise weights
+    0), both Adam states warmed (``_warm_opt``), the port's state carried
+    over by ``utils/from_flax.line_state_from_flax``, dropout off in the
+    port.  The JAX optimizers record the gradients they are given in
+    ``jt.opt_grads["main"]`` and ``["disc"]`` (``_recording``).  Use
+    inside ``deterministic_line_gan``."""
+    import jax.numpy as jnp
+
+    from affganwriting_tpu.models.line.autoencoder import Autoencoder as JAE
+    from affganwriting_tpu.models.line.container import HWWithStyle as JHW
+    from affganwriting_tpu.models.line.discriminator import (
+        DiscriminatorAP as JD,
+    )
+    from affganwriting_tpu.train.line_trainer import LineGanTrainer as JT
+    from affganwriting_tpu.train.line_trainer import LineState
+    from affganwriting_tpu.train.schedules import partitioned_optimizer
+    from affganwriting_torch.models.line.autoencoder import Autoencoder
+    from affganwriting_torch.models.line.container import HWWithStyle
+    from affganwriting_torch.models.line.discriminator import (
+        DiscriminatorAP,
+    )
+    from affganwriting_torch.train.line_trainer import LineGanTrainer
+    from affganwriting_torch.utils.from_flax import line_state_from_flax
+
+    kw = dict(LINE_GAN, char_style_dim=char_style_dim)
+    jt = JT(**kw, seed=seed, **trainer_kw)
+    jt.model = JHW(gen_dim=32, **kw)
+    jt.disc = JD(dim=8)
+    jt.ae = JAE(dim=8)
+    b = line_batch(seed=seed)
+    mv = line_variables(jt.model, b["image"], b["label"], b["label_lengths"],
+                        method=jt.model.init_all, seed=seed, zero_noise=True)
+    dv = line_variables(jt.disc, b["image"], seed=seed + 1)
+    av = line_variables(jt.ae, b["image"], seed=seed + 2)
+    main = {k: v for k, v in mv["params"].items() if k != "hwr"}
+    jt.opt_grads = {"main": [], "disc": []}
+    jt.main_opt = _recording(partitioned_optimizer(params=main,
+                                                   **jt._opt_cfg),
+                             jt.opt_grads["main"])
+    jt.disc_opt = _recording(jt.disc_opt, jt.opt_grads["disc"])
+    jt._build_steps()
+    js = LineState(
+        step=jnp.asarray(5, jnp.int32), main_params=main,
+        hwr_params=mv["params"]["hwr"],
+        model_stats=mv.get("batch_stats", {}),
+        disc_params=dv["params"], disc_stats=dv["batch_stats"],
+        ae_params=av["params"],
+        main_opt=_warm_opt(jt.main_opt.init(main), seed + 3),
+        disc_opt=_warm_opt(jt.disc_opt.init(dv["params"]), seed + 4))
+    tt = LineGanTrainer(**kw, seed=seed, device="cpu", **trainer_kw)
+    tt.model = HWWithStyle(gen_dim=32, **kw)
+    tt.disc = DiscriminatorAP(dim=8)
+    tt.ae = Autoencoder(dim=8)
+    tt.train_dropout = False
+    ts = tt.init_state()
+    line_state_from_flax(to_numpy_tree(js), ts)
+    return jt, js, tt, ts
+
+
+def line_state_errors(js, ts) -> dict:
+    """Max abs difference of a JAX ``LineState`` and the port's: the main
+    tree with the HWR and its statistics (``model``), D's parameters
+    (``disc``), D's u/sigma (``sn``) and the AE (``ae``)."""
+    from affganwriting_torch.utils.from_flax import (
+        disc_from_flax,
+        line_from_flax,
+    )
+
+    jn = to_numpy_tree(js)
+    model = line_from_flax({"params": {**jn.main_params,
+                                       "hwr": jn.hwr_params},
+                            "batch_stats": jn.model_stats}, ts.model)
+    disc = disc_from_flax({"params": jn.disc_params,
+                           "batch_stats": jn.disc_stats}, ts.disc)
+    ae = convert_module({"params": jn.ae_params}, ts.ae)
+
+    def err(want, module, keep):
+        got = module.state_dict()
+        return max(float((got[k] - v).abs().max())
+                   for k, v in want.items() if keep(k))
+
+    return {"model": err(model, ts.model, lambda k: True),
+            "disc": err(disc, ts.disc,
+                        lambda k: not k.endswith((".u", ".sigma"))),
+            "sn": err(disc, ts.disc, lambda k: k.endswith((".u", ".sigma"))),
+            "ae": err(ae, ts.ae, lambda k: True)}
