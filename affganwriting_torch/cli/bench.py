@@ -167,20 +167,26 @@ def run_gen_only(batch: int) -> dict:
     return _rates(make_generate_fn(cfg, seed=0), style, labels, batch)
 
 
-def run_train_step(batch: int, n_stream: int = 10) -> dict:
-    """Words trained a second through the merged four-player step:
-    ``n_stream`` steps streamed, then the median of 6 synchronized steps."""
+def train_setup(batch: int, merge_dg: bool | None = None, device=None,
+                config=None):
+    """``config`` (default ``default_config()``) at ``batch``: (state, the
+    phased step, merged unless ``merge_dg`` is False, a batch of seed-0
+    noise on the device, a ``torch.Generator`` there seeded 1), on the
+    card unless ``device="cpu"``."""
     import numpy as np
     import torch
 
     from affganwriting_torch.core.config import VOCAB, default_config
-    from affganwriting_torch.tools.timing import wall_ms
+    from affganwriting_torch.gen.inference import resolve_device
     from affganwriting_torch.train.state import init_state
     from affganwriting_torch.train.step import make_phased_train_step
 
-    cfg = default_config().replace(batch_size=batch)
-    state = init_state(cfg, seed=0)
-    step = make_phased_train_step(cfg, merge_dg=cfg.merge_dg)
+    dev = resolve_device(device)
+    cfg = (config or default_config()).replace(batch_size=batch)
+    state = init_state(cfg, dev, seed=0)
+    step = make_phased_train_step(
+        cfg, merge_dg=cfg.merge_dg if merge_dg is None else merge_dg,
+        device=dev)
     rng = np.random.default_rng(0)
 
     def lab(w):
@@ -197,8 +203,19 @@ def run_train_step(batch: int, n_stream: int = 10) -> dict:
         "label_ch0": np.asarray([lab("word")] * batch, np.int32),
     }
     # the batch lives on the card, so the upload is not timed
-    batch_d = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch_d = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    return state, step, batch_d, gen
+
+
+def run_train_step(batch: int, n_stream: int = 10) -> dict:
+    """Words trained a second through the merged four-player step:
+    ``n_stream`` steps streamed, then the median of 6 synchronized steps."""
+    import torch
+
+    from affganwriting_torch.tools.timing import wall_ms
+
+    state, step, batch_d, gen = train_setup(batch)
     step(state, batch_d, gen)
     torch.cuda.synchronize()
     t0 = time.perf_counter()

@@ -6,16 +6,19 @@ line_generation/train.py, ``python train.py -c config.json``): the JAX
 CLI's flags, ``--config`` and ``-a`` overrides, and ``--device`` (default
 the card; ``cpu`` runs on the CPU).  The curriculum is the reference's
 count/gen/auto/disc rotation; the lines are synthetic
-(``data/lines.LineDataset``).  Runtime: ``latest`` every
-``--save-latest-every`` iterations, periodic keeps every ``--save-every``,
-validation with monitor-best every ``--val-every``, SWA past
-``--swa-start``, a full resume (model, both optimizers, iteration and SWA)
-from ``<logdir>/ckpt/latest`` unless ``--no-resume``.
+(``data/lines.LineDataset``) unless ``--xml-root`` names an IAM form-XML
+directory (``data/parse_iam``: its ``--split`` for training, ``valid``
+for validation, the form pages from ``--image-root``).
+``--pretrained-hwr`` and ``--pretrained-ae`` (or the config's
+``model.pretrained_hwr`` and ``trainer.encoder_weights``) splice the
+``hwr_final`` of ``cli/train_hwr`` and the ``ae_final`` of
+``cli/train_auto`` into the frozen recognizer and AE.  Runtime: ``latest``
+every ``--save-latest-every`` iterations, periodic keeps every
+``--save-every``, validation with monitor-best every ``--val-every``, SWA
+past ``--swa-start``, a full resume (model, both optimizers, iteration and
+SWA) from ``<logdir>/ckpt/latest`` unless ``--no-resume``.
 
-Not ported yet, refused by name: ``--xml-root`` (the IAM line data, ROADMAP
-Queue 1 item 11), ``--mesh`` (item 10), ``--pretrained-hwr`` and
-``--pretrained-ae`` (their checkpoints come from ``cli/train_hwr`` and
-``cli/train_auto``, item 11).
+Not ported yet, refused by name: ``--mesh`` (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -25,17 +28,28 @@ import argparse
 
 def refuse_unported(args) -> None:
     """Raise ``SystemExit`` for a flag the port does not have yet."""
-    from affganwriting_torch.train.line_trainer import refuse_pretrained
-
-    if args.xml_root:
-        raise SystemExit("--xml-root: the IAM line data (parse_iam, "
-                         "normalize_line) waits for ROADMAP Queue 1 item 11; "
-                         "run on the synthetic lines")
     if args.mesh != "none":
         raise SystemExit("--mesh: the multi-device port waits for ROADMAP "
                          "Queue 1 item 10; run without --mesh")
-    refuse_pretrained(pretrained_hwr=args.pretrained_hwr,
-                      pretrained_ae=args.pretrained_ae)
+
+
+def make_dataset(args, charset, split: str, seed: int):
+    """The IAM lines of ``split`` under ``--xml-root``, else the synthetic
+    lines."""
+    if args.xml_root:
+        from affganwriting_torch.data.parse_iam import (
+            AuthorLineDataset,
+            AuthorLinesIndex,
+        )
+
+        index = AuthorLinesIndex(args.xml_root, split=split)
+        return AuthorLineDataset(
+            index, args.image_root or args.xml_root, charset,
+            a_batch_size=args.a_batch_size, seed=seed)
+    from affganwriting_torch.data.lines import LineDataset
+
+    return LineDataset(charset, a_batch_size=args.a_batch_size,
+                       width=args.width, seed=seed)
 
 
 def parse(argv=None):
@@ -56,10 +70,10 @@ def parse(argv=None):
     p.add_argument("--logdir", default="runs/line_gan")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--xml-root", default=None,
-                   help="IAM form-XML dir (not ported yet)")
+                   help="IAM form-XML dir (real data path); synthetic "
+                        "lines when absent")
     p.add_argument("--image-root", default=None,
-                   help="IAM form images dir; the synthetic lines whatever "
-                        "it holds, as in the JAX CLI")
+                   help="IAM form images dir (default: --xml-root)")
     p.add_argument("--split", default="train",
                    choices=("train", "valid", "test"))
     p.add_argument("--mesh", default="none", help="not ported yet")
@@ -76,11 +90,16 @@ def parse(argv=None):
     p.add_argument("--restart-rss-gb", type=float, default=48.0,
                    help="host-RSS watchdog: save latest + re-exec (resume) "
                         "past this RSS; 0 disables")
-    p.add_argument("--pretrained-hwr", default=None, help="not ported yet")
+    p.add_argument("--pretrained-hwr", default=None,
+                   help="a cli/train_hwr 'hwr_final' to load (frozen) into "
+                        "the recognizer slot (hw_with_style.py:182-194)")
     p.add_argument("--char-style-dim", type=int, default=0,
                    help="per-character private style size; > 0 selects the "
                         "multi-style extractor")
-    p.add_argument("--pretrained-ae", default=None, help="not ported yet")
+    p.add_argument("--pretrained-ae", default=None,
+                   help="a cli/train_auto 'ae_final' to load (frozen) into "
+                        "the perceptual-AE slot (the reference's trainer "
+                        "encoder_weights, hw_with_style_trainer.py:139-149)")
     p.add_argument("--device", default=None,
                    help="default: the CUDA card; 'cpu' to run on the CPU")
     args = p.parse_args(argv)
@@ -115,7 +134,7 @@ def main(argv=None):
         LineCheckpointManager,
         restore_line_trainer,
     )
-    from affganwriting_torch.data.lines import LineCharset, LineDataset
+    from affganwriting_torch.data.lines import LineCharset
     from affganwriting_torch.gen.inference import resolve_device
     from affganwriting_torch.train.line_trainer import LineGanTrainer
     from affganwriting_torch.utils.logging import MetricsLogger
@@ -123,10 +142,10 @@ def main(argv=None):
     args = parse(argv)
     resolve_device(args.device)
     charset = LineCharset()
-    ds = LineDataset(charset, a_batch_size=args.a_batch_size,
-                     width=args.width, seed=args.seed)
-    val_ds = LineDataset(charset, a_batch_size=args.a_batch_size,
-                         width=args.width, seed=args.seed + 1)
+    ds = make_dataset(args, charset, args.split, args.seed)
+    val_ds = make_dataset(args, charset,
+                          "valid" if args.xml_root else args.split,
+                          args.seed + 1)
     ckpt_dir = f"{args.logdir}/ckpt"
     ckpt = LineCheckpointManager(ckpt_dir)
     first = next(ds.batches(batch_authors=args.batch_authors))
@@ -144,6 +163,8 @@ def main(argv=None):
         trainer = LineGanTrainer(
             n_class=charset.n_class, max_gen_length=args.max_gen_length,
             lr=args.lr, seed=args.seed, iterations=args.iterations,
+            pretrained_hwr=args.pretrained_hwr,
+            pretrained_ae=args.pretrained_ae,
             char_style_dim=args.char_style_dim, device=args.device)
         state = trainer.init_state(first)
 

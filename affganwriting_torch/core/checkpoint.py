@@ -13,7 +13,7 @@ Crash safety: a save writes ``<path>.new`` in full (through a temporary
 file renamed into place, so a ``.new`` is always complete) and commits with
 two renames, the old file aside and the new one into place.  At every
 instant ``<path>`` or a complete ``<path>.new`` exists, and
-``_recover_swap`` promotes the latter after a crash between the renames.
+``recover_swap`` promotes the latter after a crash between the renames.
 
 The line GAN (``LineCheckpointManager``, ``restore_line_trainer``): the
 payload is ``{"state": {"step", "model", "disc", "ae": state dicts (the
@@ -63,6 +63,37 @@ def load_payload(state, payload: dict):
     return state
 
 
+def recover_swap(path: str) -> None:
+    """Finish a swap that stopped between its two renames: ``<path>``
+    missing beside a complete ``<path>.new`` -> promote it; drop a
+    left-over ``<path>.old``."""
+    new, old = f"{path}.new", f"{path}.old"
+    if not os.path.exists(path) and os.path.exists(new):
+        os.rename(new, path)
+    if os.path.exists(old):
+        os.remove(old)
+
+
+def save_swap(path: str, payload: dict) -> None:
+    """``torch.save`` ``payload`` to ``path`` by the swap above: never a
+    half-written ``path``."""
+    recover_swap(path)
+    new, tmp, old = f"{path}.new", f"{path}.new.tmp", f"{path}.old"
+    torch.save(payload, tmp)
+    os.replace(tmp, new)
+    if os.path.exists(path):
+        os.rename(path, old)
+    os.rename(new, path)
+    if os.path.exists(old):
+        os.remove(old)
+
+
+def load_swapped(path: str, map_location="cpu") -> dict:
+    """The payload ``save_swap`` wrote to ``path``."""
+    recover_swap(path)
+    return torch.load(path, map_location=map_location, weights_only=True)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep_periodic: int = 5):
         self.directory = os.path.abspath(directory)
@@ -77,29 +108,8 @@ class CheckpointManager:
     def _path(self, name: str) -> str:
         return os.path.join(self.directory, name)
 
-    def _recover_swap(self, path: str) -> None:
-        """Finish a swap that stopped between its two renames: ``<path>``
-        missing beside a complete ``<path>.new`` -> promote it; drop a
-        left-over ``<path>.old``."""
-        new, old = f"{path}.new", f"{path}.old"
-        if not os.path.exists(path) and os.path.exists(new):
-            os.rename(new, path)
-        if os.path.exists(old):
-            os.remove(old)
-
-    def _save_swap(self, path: str, payload: dict) -> None:
-        self._recover_swap(path)
-        new, tmp, old = f"{path}.new", f"{path}.new.tmp", f"{path}.old"
-        torch.save(payload, tmp)
-        os.replace(tmp, new)
-        if os.path.exists(path):
-            os.rename(path, old)
-        os.rename(new, path)
-        if os.path.exists(old):
-            os.remove(old)
-
     def save(self, name: str, state, config: WordGanConfig) -> None:
-        self._save_swap(self._path(name), state_payload(state))
+        save_swap(self._path(name), state_payload(state))
         with open(self._path(f"{name}.config.json"), "w") as f:
             f.write(config.to_json())
 
@@ -133,9 +143,7 @@ class CheckpointManager:
 
     def load(self, name: str, map_location=None) -> dict:
         """The checkpoint's dict, its tensors on ``map_location``."""
-        path = self._path(name)
-        self._recover_swap(path)
-        return torch.load(path, map_location=map_location, weights_only=True)
+        return load_swapped(self._path(name), map_location)
 
     def restore(self, name: str, state):
         """Load checkpoint ``name`` into ``state`` (a ``WordGanState`` of
@@ -148,7 +156,7 @@ class CheckpointManager:
             return WordGanConfig.from_json(f.read())
 
     def latest_exists(self) -> bool:
-        self._recover_swap(self._path("latest"))
+        recover_swap(self._path("latest"))
         return os.path.exists(self._path("latest"))
 
 
@@ -185,7 +193,7 @@ class LineCheckpointManager(CheckpointManager):
     and the trainer's constructor config as JSON beside it."""
 
     def save(self, name: str, payload: dict, config: dict) -> None:
-        self._save_swap(self._path(name), line_payload(payload))
+        save_swap(self._path(name), line_payload(payload))
         with open(self._path(f"{name}.config.json"), "w") as f:
             json.dump(config, f, indent=2, sort_keys=True)
 

@@ -296,6 +296,11 @@ class Decoder(nn.Module):
         skip3 = style_pyramid[4]
         x = self.res0(content, sites[0], sites[1], skip1)
         x = self.res1(x, sites[2], sites[3], skip3)
+        return self.up_chain(x)
+
+    def up_chain(self, x: torch.Tensor) -> torch.Tensor:
+        """The upsample convs, their instance norms + ReLU (``in_relu`` in
+        eval mode) and the head: (B, dim, h, w) -> (B, 1, 8h, 8w)."""
         for i in range(self.ups):
             x = getattr(self, f"up{i}")(x)
             if self.subpixel and i == self.ups - 1:

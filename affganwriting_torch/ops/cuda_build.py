@@ -5,10 +5,15 @@ source, started together) and linked into one shared library with a plain C
 interface, cached under ``build/kernels/<hash of the sources and flags>/``
 at the root of the checkout.  Nothing here runs at import: the first kernel
 launch builds, and an ``nvcc`` failure raises.
+
+The kernels launch through ``ctypes``, where no torch dispatch mode sees
+them, so each wrapper reports its launch's work to ``count_work``;
+``work_counter`` sums it (``utils/profiling.op_counts``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -31,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _build_lock = threading.Lock()
+_work_counters: list[dict] = []
 
 
 def nvcc_path() -> str:
@@ -150,3 +156,23 @@ def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
             f"{what}: the kernel is forward-only and an input requires "
             "grad; call it under torch.no_grad() or torch.inference_mode(), "
             "or use the model's train mode, which does not call it")
+
+
+def count_work(flops: float, nbytes: float) -> None:
+    """Add one launch's work (matmul FLOPs; bytes, each input read once and
+    each output written once) to every open ``work_counter``."""
+    for c in _work_counters:
+        c["flops"] += flops
+        c["bytes"] += nbytes
+
+
+@contextlib.contextmanager
+def work_counter():
+    """Yields {"flops", "bytes"}: the sums of the kernels launched inside
+    the block."""
+    c = {"flops": 0.0, "bytes": 0.0}
+    _work_counters.append(c)
+    try:
+        yield c
+    finally:
+        _work_counters.remove(c)

@@ -61,6 +61,7 @@ def in_relu(x: torch.Tensor, eps: float = 1e-5,
                  cuda_build.DTYPE_CODES[x.dtype],
                  torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "in_relu")
+    cuda_build.count_work(0.0, 2 * x.numel() * x.element_size())
     in_relu.launches += 1
     return y
 

@@ -177,6 +177,10 @@ def phase_head(xp: torch.Tensor, kc: torch.Tensor,
         .contiguous()
     out = torch.empty(b, 1, 2 * h, 2 * w, dtype=xp.dtype, device=xp.device)
     stream = torch.cuda.current_stream(xp.device).cuda_stream
+    cuda_build.count_work(
+        2 * c4 * 100 * h * w * b,
+        (xp.numel() + kc.numel() + out.numel()) * xp.element_size()
+        + bias.numel() * 4)
     if f32:
         fn = cuda_build.kernel("affg_phase_head_f32", _ARGS_F32)
         with torch.cuda.device(xp.device):

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 import sys
 from typing import Iterator, Optional
 
@@ -50,6 +51,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from affganwriting_torch.core.checkpoint import load_swapped
 from affganwriting_torch.gen.inference import resolve_device
 from affganwriting_torch.models.line.autoencoder import Autoencoder
 from affganwriting_torch.models.line.container import HWWithStyle
@@ -58,20 +60,43 @@ from affganwriting_torch.ops.dtw import correct_pred
 from affganwriting_torch.train.curriculum import Curriculum
 from affganwriting_torch.train.schedules import PartitionedAdam
 
-UNPORTED_PRETRAINED = {
-    "pretrained_hwr": "cli/train_hwr (ROADMAP Queue 1 item 11)",
-    "pretrained_ae": "cli/train_auto (ROADMAP Queue 1 item 11)",
-}
+def splice_pretrained_hwr(path: str, hwr: torch.nn.Module) -> None:
+    """Load a ``cli/train_hwr.py`` checkpoint (``{"params",
+    "batch_stats"}`` of the standalone recognizer, ``hwr_final``) into the
+    container's ``hwr`` in place (the reference's hw_with_style.py:182-194:
+    ``model.pretrained_hwr`` loaded into the frozen recognizer).  Names
+    and shapes must match: the same arch, norm and n_class as the
+    pretrainer."""
+    saved = load_swapped(os.path.abspath(path))
+    hwr.load_state_dict({**saved["params"], **saved.get("batch_stats", {})},
+                        strict=True)
 
 
-def refuse_pretrained(**paths) -> None:
-    """Raise ``SystemExit`` for a pretrained HWR or AE path: their
-    checkpoints come from CLIs the port does not have yet."""
-    for key, path in paths.items():
-        if path:
-            raise SystemExit(
-                f"{key.replace('_', '-')}: reads a checkpoint of "
-                f"{UNPORTED_PRETRAINED[key]}, not ported yet")
+def splice_pretrained_ae(path: str, ae: torch.nn.Module) -> None:
+    """Load a ``cli/train_auto.py`` checkpoint (``{"params"}`` of the
+    trained autoencoder, ``ae_final``) into the frozen AE ``ae`` in place
+    (the reference's hw_with_style_trainer.py:139-149: the AutoTrainer
+    snapshot's weights, frozen; the perceptual distance runs in that
+    feature space, :735-758).  The 'newCTC' pretrain carries an E_HWR head
+    the GAN never applies: only the parameter groups (top-level modules)
+    of ``ae`` are taken.  A missing group or a shape that differs raises
+    ``ValueError``."""
+    saved = load_swapped(os.path.abspath(path))["params"]
+    init = ae.state_dict()
+    groups = dict.fromkeys(k.split(".")[0] for k in init)
+    have = {k.split(".")[0] for k in saved}
+    missing = [g for g in groups if g not in have]
+    if missing:
+        raise ValueError(
+            f"pretrained AE at {path} lacks param groups {missing}; "
+            "was it trained with a different --variant?")
+    for k, v in init.items():
+        got = tuple(saved[k].shape) if k in saved else None
+        if got != tuple(v.shape):
+            raise ValueError(f"pretrained AE shape {got} != init "
+                             f"{tuple(v.shape)} ({k})")
+    ae.load_state_dict({k: saved[k].to(v.dtype) for k, v in init.items()},
+                       strict=True)
 
 
 @dataclasses.dataclass
@@ -194,8 +219,6 @@ class LineGanTrainer:
                  pretrained_hwr: str | None = None,
                  pretrained_ae: str | None = None,
                  char_style_dim: int = 0, device=None):
-        refuse_pretrained(pretrained_hwr=pretrained_hwr,
-                          pretrained_ae=pretrained_ae)
         self.device = resolve_device(device)
         # the constructor config, embedded in checkpoints so that
         # generation and the app rebuild the model from a checkpoint alone
@@ -219,6 +242,11 @@ class LineGanTrainer:
                 char_style_dim=char_style_dim)
             self.disc = DiscriminatorAP(dim=64, use_low=True, use_med=True)
             self.ae = Autoencoder()
+        # the reference's pretrained, frozen recognizer and perceptual AE
+        # (model.pretrained_hwr, trainer.encoder_weights): read by
+        # init_state, so a restore reads them again before the checkpoint
+        self.pretrained_hwr = pretrained_hwr
+        self.pretrained_ae = pretrained_ae
         self.curriculum = curriculum or Curriculum()
         self.style_bank = StyleBank(seed=seed)
         self.balance_loss = balance_loss
@@ -243,15 +271,20 @@ class LineGanTrainer:
     # ----- init -----
     def init_state(self, sample_batch: dict | None = None) -> LineState:
         """A fresh state: copies of ``model``, ``disc`` and ``ae`` on the
-        device, Adam over the main tree (schedule and slow/frozen groups)
-        and over D.  ``sample_batch`` is not needed (the JAX trainer takes
-        it for shapes)."""
+        device, the pretrained HWR and AE spliced in where the trainer was
+        given their files, Adam over the main tree (schedule and
+        slow/frozen groups) and over D.  ``sample_batch`` is not needed
+        (the JAX trainer takes it for shapes)."""
         from affganwriting_torch.utils.from_flax import flax_paths
 
         dev = self.device
         model = copy.deepcopy(self.model).to(dev).eval()
+        if self.pretrained_hwr:
+            splice_pretrained_hwr(self.pretrained_hwr, model.hwr)
         disc = copy.deepcopy(self.disc).to(dev).eval()
         ae = copy.deepcopy(self.ae).to(dev).eval().requires_grad_(False)
+        if self.pretrained_ae:
+            splice_pretrained_ae(self.pretrained_ae, ae)
         model.hwr.requires_grad_(False)
         params = main_params(model)
         main_opt = PartitionedAdam(params, flax_paths(model, params),

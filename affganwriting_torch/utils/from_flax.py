@@ -46,6 +46,10 @@ caller hands the flax trees over as nested dicts of numpy arrays
   (optax ``multi_transform`` over main/slow/frozen) as one
   ``train/schedules.py:PartitionedAdam``.  ``flax_paths`` reads the name
   map backwards: port parameter -> JAX path string.
+- The pretrained line checkpoints: a JAX ``hwr_final`` tree
+  (``hwr_final_from_flax``) and ``ae_final`` tree (``ae_final_from_flax``)
+  -> the payloads that the port's ``cli/train_hwr`` and ``cli/train_auto``
+  write (the port never reads an orbax directory: orbax needs jax).
 
 ``from_flax`` raises on any flax leaf it did not consume, and on any port
 parameter or buffer it did not fill or filled with the wrong shape.
@@ -366,6 +370,25 @@ def line_from_flax(variables: Mapping, module: torch.nn.Module) -> dict:
     state dict for the port's ``module``, with ``convert_module``'s leaf
     accounting."""
     return convert_module(variables, module, extra=_LINE_LEAVES)
+
+
+def hwr_final_from_flax(tree: Mapping, module: torch.nn.Module) -> dict:
+    """A JAX ``cli/train_hwr`` checkpoint tree (``{"params",
+    "batch_stats"}`` of ``CNNOnlyHWR`` or ``CRNN``, numpy leaves) -> the
+    port's ``hwr_final`` payload for ``module``, the same arch, norm and
+    classes: ``{"params": {name: tensor}, "batch_stats": {name: running
+    statistic}}``."""
+    sd = line_from_flax(tree, module)
+    return {"params": {n: sd[n] for n, _ in module.named_parameters()},
+            "batch_stats": {n: sd[n] for n, _ in module.named_buffers()}}
+
+
+def ae_final_from_flax(tree: Mapping, module: torch.nn.Module) -> dict:
+    """A JAX ``cli/train_auto`` checkpoint tree (``{"params"}`` of the
+    ``Autoencoder``, with the E_HWR head when it was trained with CTC;
+    numpy leaves) -> the port's ``ae_final`` payload ``{"params": state
+    dict}`` for ``module``, built with the same variant and head."""
+    return {"params": convert_module({"params": tree["params"]}, module)}
 
 
 def trocr_core_from_flax(params: Mapping, arch) -> dict:

@@ -1,8 +1,9 @@
 """The port's CLIs on the CPU: ``--help``, a 1-epoch ``train_word``, a
 ``generate_word`` chunk from its checkpoint (greedy and beam) and
 ``inspect_ckpt``; ``quality_report`` and ``evaluate`` on a checkpoint
-trained with the ``cnn`` style encoder, with PIL and without; and the
-flags of the JAX CLIs that wait for later work.
+trained with the ``cnn`` style encoder, with PIL and without; the flags
+of the JAX CLIs that wait for later work; and ``train_line``'s IAM and
+pretrained flags reaching their readers.
 
 The run uses a small configuration (tests/test_torch_support.py's, with
 resnet18 and batch 2 to keep the checkpoint small) in place of
@@ -20,10 +21,16 @@ import numpy as np
 
 from affganwriting_torch.cli import (
     evaluate,
+    evaluate_line,
     generate_word,
     get_styles,
     inspect_ckpt,
+    line_repl,
+    profile_gen,
+    profile_pipeline,
     quality_report,
+    train_auto,
+    train_hwr,
     train_line,
     train_word,
 )
@@ -45,9 +52,13 @@ def no_tensorboard(monkeypatch):
 
 @pytest.mark.parametrize(
     "cli", [train_word, generate_word, inspect_ckpt, evaluate,
-            quality_report, train_line, get_styles, app],
+            quality_report, train_line, get_styles, app, train_auto,
+            train_hwr, evaluate_line, line_repl, profile_pipeline,
+            profile_gen],
     ids=["train_word", "generate_word", "inspect_ckpt", "evaluate",
-         "quality_report", "train_line", "get_styles", "app"])
+         "quality_report", "train_line", "get_styles", "app", "train_auto",
+         "train_hwr", "evaluate_line", "line_repl", "profile_pipeline",
+         "profile_gen"])
 def test_help(cli, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["--help"])
@@ -62,21 +73,24 @@ def test_help(cli, capsys):
       "ckpt"], "cannot load into --trocr-preset tiny"),
     (["--recognizer", "trocr", "--trocr-ckpt", "no/such/dir"],
      "not a readable local HF checkpoint directory"),
-    (["train_line", "--xml-root", "xml"], "item 11"),
+    (["train_line", "--xml-root", "no/such/xml"], "no/such/xml"),
     (["train_line", "--mesh", "auto"], "item 10"),
-    (["train_line", "--pretrained-hwr", "hwr_final"],
-     r"cli/train_hwr \(ROADMAP Queue 1 item 11\)"),
-    (["train_line", "--pretrained-ae", "ae_final"],
-     r"cli/train_auto \(ROADMAP Queue 1 item 11\)"),
+    (["train_line", "--pretrained-hwr", "no/such/hwr_final"],
+     "no/such/hwr_final"),
+    (["train_line", "--pretrained-ae", "no/such/ae_final"],
+     "no/such/ae_final"),
     (["train_line", "--config", "configs/cf_synth_charSpecMulti.json", "-a",
-      "trainer.encoder_weights=ae_final"], r"cli/train_auto"),
-    (["line_trainer", "pretrained_hwr"], r"cli/train_hwr"),
-    (["line_trainer", "pretrained_ae"], r"cli/train_auto")])
-def test_unported_flags_name_their_roadmap_item(flags, item):
-    """The refusals: ``--mesh`` names the ROADMAP item it waits for; the
-    TrOCR flags are refused by the JAX CLI's own rules; ``train_line``'s
-    IAM line data, ``--mesh`` and the pretrained HWR and AE (flags, config
-    keys, or the trainer's own arguments) name theirs."""
+      "trainer.encoder_weights=no/such/ae_final"], "no/such/ae_final"),
+    (["line_trainer", "pretrained_hwr"], "no/such/pretrained_hwr"),
+    (["line_trainer", "pretrained_ae"], "no/such/pretrained_ae")])
+def test_unported_flags_name_their_roadmap_item(flags, item, tmp_path):
+    """The refusals: ``--mesh`` names the ROADMAP item it waits for (in
+    ``train_word``, ``generate_word`` and ``train_line``); the TrOCR flags
+    are refused by the JAX CLI's own rules.  ``train_line``'s IAM line
+    data and pretrained HWR and AE (flags, the config's
+    ``trainer.encoder_weights``, or the trainer's own arguments) are
+    ported: a path that does not exist reaches the IAM reader or the
+    splice, which raise ``FileNotFoundError`` naming it."""
     from pathlib import Path
 
     from affganwriting_torch.train.line_trainer import LineGanTrainer
@@ -85,12 +99,16 @@ def test_unported_flags_name_their_roadmap_item(flags, item):
         root = Path(__file__).resolve().parents[1]
         argv = [str(root / a) if a.startswith("configs/") else a
                 for a in flags[1:]]
-        with pytest.raises(SystemExit, match=item):
-            train_line.main(argv + ["--device", "cpu"])
+        exc = SystemExit if "--mesh" in flags else FileNotFoundError
+        with pytest.raises(exc, match=item):
+            train_line.main(argv + ["--device", "cpu", "--logdir",
+                                    str(tmp_path / "line")])
         return
     if flags[0] == "line_trainer":
-        with pytest.raises(SystemExit, match=item):
-            LineGanTrainer(device="cpu", **{flags[1]: "ckpt"})
+        trainer = LineGanTrainer(device="cpu",
+                                 **{flags[1]: f"no/such/{flags[1]}"})
+        with pytest.raises(FileNotFoundError, match=item):
+            trainer.init_state()
         return
     with pytest.raises(SystemExit, match=item):
         train_word.main(flags + ["--device", "cpu"])

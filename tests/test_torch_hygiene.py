@@ -83,16 +83,29 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
 
 def test_trainer_and_clis_need_a_card_or_an_explicit_cpu(tmp_path,
                                                          monkeypatch):
-    """The trainers (the word and the line GAN's), ``train_word``'s
-    builder and the other CLIs (the teacher phase's two, ``train_htr``,
-    ``train_line`` and ``get_styles`` among them), the int8 A/B tools,
-    ``restore_line_trainer``, ``extract_styles``, ``generate_lines`` and
-    the app's backend raise before they build or write anything."""
+    """The trainers (the word and the line GAN's, the AE pretrainer),
+    ``train_word``'s builder and the other CLIs (the teacher phase's two,
+    ``train_htr``, ``train_line``, ``get_styles``, the line pretrainers,
+    ``evaluate_line``, ``line_repl`` and the two profilers among them),
+    the int8 A/B tools, ``restore_line_trainer``, ``extract_styles``,
+    ``generate_lines``, ``evaluate_lines`` and the app's backend raise
+    before they build or write anything."""
     import json
     from types import SimpleNamespace
 
-    from affganwriting_torch.cli import get_styles, train_line
+    from affganwriting_torch.cli import (
+        evaluate_line,
+        get_styles,
+        line_repl,
+        profile_gen,
+        profile_pipeline,
+        train_auto,
+        train_hwr,
+        train_line,
+    )
     from affganwriting_torch.core.checkpoint import restore_line_trainer
+    from affganwriting_torch.eval.line_eval import evaluate_lines
+    from affganwriting_torch.train.auto_trainer import AutoTrainer
     from affganwriting_torch.gen.line_inference import (
         extract_styles,
         generate_lines,
@@ -119,7 +132,8 @@ def test_trainer_and_clis_need_a_card_or_an_explicit_cpu(tmp_path,
             WordGanTrainer(small_torch_config(), [], logdir=str(tmp_path),
                            **kw)
     assert not (tmp_path / "ckpt").exists()
-    for cli in (train_word, teacher_check, train_htr):
+    for cli in (train_word, teacher_check, train_htr, profile_pipeline,
+                profile_gen):
         monkeypatch.setattr(cli, "default_config", small_torch_config)
     for extra in ([], ["--device", "cuda"]):
         for run in (
@@ -158,10 +172,23 @@ def test_trainer_and_clis_need_a_card_or_an_explicit_cpu(tmp_path,
                 lambda: get_styles.main(
                     ["--out", str(tmp_path / "s.pkl")] + extra),
                 lambda: app._load_backend(**kw),
-                lambda: app.main(["--selftest"] + extra)):
+                lambda: app.main(["--selftest"] + extra),
+                lambda: AutoTrainer(**kw),
+                lambda: evaluate_lines(on_card, None, [], None),
+                lambda: train_auto.main(
+                    ["--logdir", str(tmp_path / "auto")] + extra),
+                lambda: train_hwr.main(
+                    ["--logdir", str(tmp_path / "hwr")] + extra),
+                lambda: evaluate_line.main(
+                    ["--out", str(tmp_path / "e.json")] + extra),
+                lambda: line_repl.main(["--out", str(tmp_path / "repl")]
+                                       + extra),
+                lambda: profile_pipeline.main(["--batch", "4"] + extra),
+                lambda: profile_gen.main(["--batch", "4"] + extra)):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 run()
-    assert not any((tmp_path / d).exists() for d in ("line", "s.pkl"))
+    assert not any((tmp_path / d).exists() for d in (
+        "line", "s.pkl", "auto", "hwr", "e.json", "repl"))
 
 
 def test_fid_and_evaluation_clis_need_a_card_or_an_explicit_cpu(tmp_path):

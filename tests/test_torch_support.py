@@ -18,6 +18,7 @@ import torch
 
 from affganwriting_tpu.core.config import default_config
 from affganwriting_torch.utils.from_flax import convert_module
+from chip_smoke import in_f64 as port_in_f64  # noqa: F401 (the tests' f64)
 
 # the small fp32 resnet50 configuration of __graft_entry__.py's dryrun
 SMALL = dict(compute_dtype="float32", img_height=32, img_width=104,
@@ -136,27 +137,6 @@ def nchw(a) -> torch.Tensor:
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).numpy()
-
-
-@contextlib.contextmanager
-def port_in_f64(*modules: torch.nn.Module):
-    """The port's ``modules`` compute in f64 inside the block: parameters,
-    compute dtypes, and every ``.float()`` they take; an exact reference
-    for the f32 readings that the train tests' limits rest on."""
-    for module in modules:
-        module.double()
-        for m in module.modules():
-            for attr in ("compute_dtype", "dtype"):
-                if getattr(m, attr, None) is torch.float32:
-                    setattr(m, attr, torch.float64)
-    as_f32 = torch.Tensor.float
-    torch.Tensor.float = lambda self, *a, **k: self.double()
-    torch.set_default_dtype(torch.float64)
-    try:
-        yield
-    finally:
-        torch.Tensor.float = as_f32
-        torch.set_default_dtype(torch.float32)
 
 
 def close(got, want, tol: float, what: str = "") -> None:
@@ -323,11 +303,13 @@ def deterministic_line_gan():
          tsg.NoiseInjection.forward) = saved
 
 
-def _warm_opt(opt_state, seed: int):
+def _warm_opt(opt_state, seed: int, mu_std: float = 1e-2,
+              nu_range: tuple = (1e-4, 1e-3)):
     """An optax state with Adam's moments drawn from ``seed`` (mu N(0,
-    1e-2), nu U(1e-4, 1e-3)) and every count at 3: a first update then
-    moves each parameter smoothly in its gradient, where a fresh Adam
-    moves it by lr * sign(g).  That update (the 4th, b1 0.5, b2 0.999) is
+    ``mu_std``), nu U(``nu_range``); by default N(0, 1e-2) and U(1e-4,
+    1e-3)) and every count at 3: a first update then moves each parameter
+    smoothly in its gradient, where a fresh Adam moves it by lr *
+    sign(g).  By default that update (the 4th, b1 0.5, b2 0.999) is
     lr * 0.53 * (mu + g) / sqrt(nu / 0.004) ~ 2.9e-4 * (mu + g) at lr
     2e-4: ~3e-6, the moments' part the same on both sides.  So the state
     after a step holds the optimizer's arithmetic, and the gradients are
@@ -342,9 +324,10 @@ def _warm_opt(opt_state, seed: int):
                  for k in path]
         a = np.asarray(leaf)
         if "mu" in names:
-            return jnp.asarray(rng.normal(0, 1e-2, a.shape).astype(a.dtype))
+            return jnp.asarray(rng.normal(0, mu_std, a.shape)
+                               .astype(a.dtype))
         if "nu" in names:
-            return jnp.asarray(rng.uniform(1e-4, 1e-3, a.shape)
+            return jnp.asarray(rng.uniform(*nu_range, a.shape)
                                .astype(a.dtype))
         if a.dtype == np.int32:
             return jnp.full(a.shape, 3, jnp.int32)
