@@ -14,8 +14,17 @@ images are read again by R's beam search.  Each word becomes
 With ``--ckpt`` the config and the weights come from the checkpoint
 (``core/checkpoint.py``); without it, ``default_config()`` with random
 weights from ``--seed``.  ``main`` returns ``{"files": [...], "pred_ids":
-(N, T - 1) int array, "seconds": the writer loop's seconds}``.  ``--mesh``
-waits for ROADMAP Queue 1 item 10.
+(N, T - 1) int array, "seconds": the writer loop's seconds}``.
+
+``--mesh`` splits each chunk of words over one process per device
+(``gen/inference.py:make_sharded_pipeline``): ``python -m
+torch.distributed.run --nproc-per-node N -m
+affganwriting_torch.cli.generate_word --mesh N`` (``DxM`` adds tensor
+parallelism of G's text encoder and mix), NCCL on the cards, gloo with
+``--device cpu``.  A chunk is padded with its first word to a multiple of
+the data size and the outputs trimmed, as the JAX CLI does; the outputs
+gather to every rank, and rank 0 writes the files.  Without the launcher
+any ``--mesh`` but ``none`` or ``1`` fails, naming it.
 """
 
 from __future__ import annotations
@@ -52,14 +61,12 @@ def main(argv=None):
                         "this width (the reference's 3, modules_tro.py:637)"
                         "; 0: the serving path's greedy reading")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--mesh", default="none")
+    p.add_argument("--mesh", default="none",
+                   help="'none', 'auto', 'N' or 'DxM', one process per "
+                        "device under torch.distributed.run")
     p.add_argument("--device", default=None,
                    help="default: the CUDA card; 'cpu' to run on the CPU")
     args = p.parse_args(argv)
-    from affganwriting_torch.cli.train_word import refuse_unported
-
-    refuse_unported(args)
-
     import torch
 
     from affganwriting_torch.core.checkpoint import CheckpointManager
@@ -75,10 +82,17 @@ def main(argv=None):
     from affganwriting_torch.gen.inference import (
         encode_labels,
         make_generate_and_read_fn,
+        make_sharded_pipeline,
         resolve_device,
+    )
+    from affganwriting_torch.parallel.multihost import (
+        is_writer,
+        mesh_from_flag,
     )
 
     dev = resolve_device(args.device)
+    mesh = mesh_from_flag(args.mesh, args.device)
+    writer = is_writer(mesh)
     states = {"gen": None, "rec": None}
     if args.ckpt:
         ck = CheckpointManager(args.ckpt)
@@ -107,10 +121,26 @@ def main(argv=None):
     words = [w for w in words if w and all(c in VOCAB.letters for c in w)]
     words = [w[: cfg.max_chars] for w in words]
 
-    run = make_generate_and_read_fn(cfg, states["gen"], states["rec"],
-                                    device=dev, seed=args.seed)
+    if mesh is None:
+        run = make_generate_and_read_fn(cfg, states["gen"], states["rec"],
+                                        device=dev, seed=args.seed)
+    else:
+        spipe = make_sharded_pipeline(cfg, mesh, states["gen"],
+                                      states["rec"], seed=args.seed)
+
+        def run(stack, labels):
+            b = labels.shape[0]
+            pad = (-b) % mesh.data
+            if pad:
+                labels = np.concatenate(
+                    [labels, np.repeat(labels[:1], pad, axis=0)])
+            imgs, preds = spipe(stack, labels)
+            return imgs[:b], preds[:b]
+
+        run.rec = spipe.rec
     writers = args.writers or list(gt.keys())[: args.max_writers]
-    os.makedirs(args.out, exist_ok=True)
+    if writer:
+        os.makedirs(args.out, exist_ok=True)
     rng = np.random.default_rng(args.seed)
     files, all_ids = [], []
     t0 = time.perf_counter()
@@ -137,7 +167,8 @@ def main(argv=None):
                 pred = VOCAB.decode(pred_ids[i]) or "x"
                 name = os.path.join(args.out,
                                     f"{wid}-{start + i}.{w}-{pred}.png")
-                _save_png(name, _normalize(imgs[i, :, :, 0]))
+                if writer:
+                    _save_png(name, _normalize(imgs[i, :, :, 0]))
                 files.append(name)
     seconds = time.perf_counter() - t0
     print(f"wrote {len(files)} images to {args.out} in {seconds:.3f} s "

@@ -18,7 +18,14 @@ every ``--save-latest-every`` iterations, periodic keeps every
 past ``--swa-start``, a full resume (model, both optimizers, iteration and
 SWA) from ``<logdir>/ckpt/latest`` unless ``--no-resume``.
 
-Not ported yet, refused by name: ``--mesh`` (ROADMAP Queue 1 item 10).
+``--mesh N`` trains data-parallel over N processes, one per device:
+``python -m torch.distributed.run --nproc-per-node N -m
+affganwriting_torch.cli.train_line --mesh N ...`` (NCCL on the cards;
+with ``--device cpu`` gloo on the CPU).  Each rank draws the same global
+batches of ``--batch-authors`` x ``--a-batch-size`` lines and trains on
+its slice (``train/line_trainer.py``); rank 0 writes the checkpoints,
+metrics and sheets.  Without the launcher any ``--mesh`` but ``none`` or
+``1`` fails, naming it.
 """
 
 from __future__ import annotations
@@ -26,11 +33,16 @@ from __future__ import annotations
 import argparse
 
 
-def refuse_unported(args) -> None:
-    """Raise ``SystemExit`` for a flag the port does not have yet."""
-    if args.mesh != "none":
-        raise SystemExit("--mesh: the multi-device port waits for ROADMAP "
-                         "Queue 1 item 10; run without --mesh")
+def _latest_exists(ckpt, mesh) -> bool:
+    """Whether ``latest`` exists, read after rank 0 has finished any swap
+    a crash left half done."""
+    if mesh is not None:
+        import torch.distributed as dist
+
+        if ckpt.write:
+            ckpt.latest_exists()
+        dist.barrier()
+    return ckpt.latest_exists()
 
 
 def make_dataset(args, charset, split: str, seed: int):
@@ -76,7 +88,9 @@ def parse(argv=None):
                    help="IAM form images dir (default: --xml-root)")
     p.add_argument("--split", default="train",
                    choices=("train", "valid", "test"))
-    p.add_argument("--mesh", default="none", help="not ported yet")
+    p.add_argument("--mesh", default="none",
+                   help="'none', 'auto' or 'N' (N-way data parallel, one "
+                        "process per device under torch.distributed.run)")
     p.add_argument("--save-every", type=int, default=2000)
     p.add_argument("--save-latest-every", type=int, default=250)
     p.add_argument("--val-every", type=int, default=1000,
@@ -123,7 +137,6 @@ def parse(argv=None):
         args.lr = cf.get("optimizer", {}).get("lr", args.lr)
         args.batch_authors = d.get("batch_size", args.batch_authors)
         args.a_batch_size = d.get("a_batch_size", args.a_batch_size)
-    refuse_unported(args)
     return args
 
 
@@ -136,23 +149,30 @@ def main(argv=None):
     )
     from affganwriting_torch.data.lines import LineCharset
     from affganwriting_torch.gen.inference import resolve_device
+    from affganwriting_torch.parallel.multihost import (
+        is_writer,
+        mesh_from_flag,
+    )
     from affganwriting_torch.train.line_trainer import LineGanTrainer
-    from affganwriting_torch.utils.logging import MetricsLogger
+    from affganwriting_torch.utils.logging import MetricsLogger, NullLogger
 
     args = parse(argv)
     resolve_device(args.device)
+    mesh = mesh_from_flag(args.mesh, args.device)
+    writer = is_writer(mesh)
     charset = LineCharset()
     ds = make_dataset(args, charset, args.split, args.seed)
     val_ds = make_dataset(args, charset,
                           "valid" if args.xml_root else args.split,
                           args.seed + 1)
     ckpt_dir = f"{args.logdir}/ckpt"
-    ckpt = LineCheckpointManager(ckpt_dir)
+    ckpt = LineCheckpointManager(ckpt_dir, write=writer)
     first = next(ds.batches(batch_authors=args.batch_authors))
     swa_state, start_iteration = None, None
-    if args.resume and ckpt.latest_exists():
+    if args.resume and _latest_exists(ckpt, mesh):
         trainer, payload = restore_line_trainer(ckpt_dir, first, "latest",
-                                                device=args.device)
+                                                device=args.device,
+                                                mesh=mesh)
         state = payload["state"]
         swa_state = payload["swa"]
         if int(swa_state["count"]) == 0:
@@ -165,7 +185,8 @@ def main(argv=None):
             lr=args.lr, seed=args.seed, iterations=args.iterations,
             pretrained_hwr=args.pretrained_hwr,
             pretrained_ae=args.pretrained_ae,
-            char_style_dim=args.char_style_dim, device=args.device)
+            char_style_dim=args.char_style_dim, device=args.device,
+            mesh=mesh)
         state = trainer.init_state(first)
 
     def stream():
@@ -179,7 +200,8 @@ def main(argv=None):
 
     state = trainer.fit(
         state, stream(), args.iterations,
-        logger=MetricsLogger(args.logdir), ckpt=ckpt,
+        logger=MetricsLogger(args.logdir) if writer else NullLogger(),
+        ckpt=ckpt,
         save_every=args.save_every,
         save_latest_every=args.save_latest_every,
         val_batches_fn=val_batches if args.val_every else None,

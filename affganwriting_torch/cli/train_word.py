@@ -15,8 +15,17 @@ one) and the epoch count; ``main`` fits it and returns it.
 ``--trocr-ckpt DIR`` imports a local HF checkpoint into it, as the JAX CLI
 does: it needs ``--recognizer trocr``, forces the base dimensions (refusing
 ``--trocr-preset tiny``), takes the char->token table from the
-directory's tokenizer, and refuses a directory it cannot read.  Not
-ported yet: ``--mesh`` (ROADMAP Queue 1 item 10).
+directory's tokenizer, and refuses a directory it cannot read.
+
+``--mesh`` trains over one process per device: ``python -m
+torch.distributed.run --nproc-per-node N -m
+affganwriting_torch.cli.train_word --mesh N`` (data parallel; ``DxM``
+puts M-way tensor parallelism of the text encoder's FC pyramid and the
+mix inside each of D data groups), NCCL on the cards, gloo with
+``--device cpu``.  ``--batch-size`` is the global batch; every rank keeps
+its slice of it (``train/loop.py``), and rank 0 writes the checkpoints,
+metrics and sheets.  Without the launcher any ``--mesh`` but ``none`` or
+``1`` fails, naming it.
 """
 
 from __future__ import annotations
@@ -25,13 +34,6 @@ import argparse
 
 from affganwriting_torch.core.config import default_config
 from affganwriting_torch.models.style_encoders import available
-
-
-def refuse_unported(args) -> None:
-    """Raise ``SystemExit`` for a flag value the port does not have yet."""
-    if getattr(args, "mesh", "none") != "none":
-        raise SystemExit("--mesh: the multi-device port waits for ROADMAP "
-                         "Queue 1 item 10; run without --mesh")
 
 
 def trocr_settings(args) -> tuple[dict, dict | None]:
@@ -96,15 +98,21 @@ def build_trainer(argv=None):
                    help="ReduceLROnPlateau on R's lr (main_run.py:279)")
     p.add_argument("--max-writers", type=int, default=None,
                    help="restrict to the first N writers of each split")
-    p.add_argument("--mesh", default="none")
+    p.add_argument("--mesh", default="none",
+                   help="'none', 'auto', 'N' or 'DxM', one process per "
+                        "device under torch.distributed.run")
     p.add_argument("--restart-rss-gb", type=float, default=48.0,
                    help="host-RSS watchdog: save latest and re-exec (resume) "
                         "past this RSS; 0 disables")
     p.add_argument("--device", default=None,
                    help="default: the CUDA card; 'cpu' to run on the CPU")
     args = p.parse_args(argv)
-    refuse_unported(args)
     trocr_fields, trocr_state = trocr_settings(args)
+    from affganwriting_torch.gen.inference import resolve_device
+    from affganwriting_torch.parallel.multihost import mesh_from_flag
+
+    resolve_device(args.device)
+    mesh = mesh_from_flag(args.mesh, args.device)
 
     from affganwriting_torch.data.iam import (
         default_reference_paths,
@@ -136,7 +144,7 @@ def build_trainer(argv=None):
         cfg, train_ds, test_ds, logdir=args.logdir, seed=args.seed,
         eval_every=args.eval_every, save_every=args.save_every,
         patience=args.patience, rec_plateau=args.rec_plateau,
-        restart_rss_gb=args.restart_rss_gb, device=args.device)
+        restart_rss_gb=args.restart_rss_gb, device=args.device, mesh=mesh)
     if trocr_state is not None:
         trainer.state.rec.model.core.load_state_dict(trocr_state)
     return trainer, args.epochs

@@ -95,9 +95,16 @@ def load_swapped(path: str, map_location="cpu") -> dict:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep_periodic: int = 5):
+    """``write=False`` (a rank other than 0 on a mesh) keeps the
+    bookkeeping (the best metric so far) and reads, but writes, renames
+    and prunes nothing: rank 0 writes for all."""
+
+    def __init__(self, directory: str, keep_periodic: int = 5,
+                 write: bool = True):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(self.directory, exist_ok=True)
         self.keep_periodic = keep_periodic
         self._best_metric: float | None = None
         best_path = self._path("best.metric.json")
@@ -109,6 +116,8 @@ class CheckpointManager:
         return os.path.join(self.directory, name)
 
     def save(self, name: str, state, config: WordGanConfig) -> None:
+        if not self.write:
+            return
         save_swap(self._path(name), state_payload(state))
         with open(self._path(f"{name}.config.json"), "w") as f:
             f.write(config.to_json())
@@ -127,12 +136,15 @@ class CheckpointManager:
         if self._best_metric is None or metric < self._best_metric:
             self._best_metric = metric
             self.save("best", state, config)
-            with open(self._path("best.metric.json"), "w") as f:
-                json.dump({"metric": metric}, f)
+            if self.write:
+                with open(self._path("best.metric.json"), "w") as f:
+                    json.dump({"metric": metric}, f)
             return True
         return False
 
     def _prune(self) -> None:
+        if not self.write:
+            return
         steps = sorted(d for d in os.listdir(self.directory)
                        if re.fullmatch(r"step_\d{8}", d))
         for d in steps[: -self.keep_periodic]:
@@ -143,20 +155,30 @@ class CheckpointManager:
 
     def load(self, name: str, map_location=None) -> dict:
         """The checkpoint's dict, its tensors on ``map_location``."""
+        if not self.write:       # rank 0 finishes an interrupted swap
+            return torch.load(self._path(name), map_location=map_location,
+                              weights_only=True)
         return load_swapped(self._path(name), map_location)
 
     def restore(self, name: str, state):
         """Load checkpoint ``name`` into ``state`` (a ``WordGanState`` of
-        the same config) in place, onto its device; returns it."""
+        the same config) in place, onto its device; returns it.  A state
+        placed on a mesh is loaded whole and sharded again (every rank of
+        its model groups must call this)."""
+        from affganwriting_torch.parallel.mesh import unsharded
+
         dev = next(state.gen.model.parameters()).device
-        return load_payload(state, self.load(name, dev))
+        payload = self.load(name, dev)
+        with unsharded(state):
+            return load_payload(state, payload)
 
     def load_config(self, name: str) -> WordGanConfig:
         with open(self._path(f"{name}.config.json")) as f:
             return WordGanConfig.from_json(f.read())
 
     def latest_exists(self) -> bool:
-        recover_swap(self._path("latest"))
+        if self.write:
+            recover_swap(self._path("latest"))
         return os.path.exists(self._path("latest"))
 
 
@@ -193,6 +215,8 @@ class LineCheckpointManager(CheckpointManager):
     and the trainer's constructor config as JSON beside it."""
 
     def save(self, name: str, payload: dict, config: dict) -> None:
+        if not self.write:
+            return
         save_swap(self._path(name), line_payload(payload))
         with open(self._path(f"{name}.config.json"), "w") as f:
             json.dump(config, f, indent=2, sort_keys=True)
@@ -204,19 +228,31 @@ class LineCheckpointManager(CheckpointManager):
 
 def restore_line_trainer(ckpt_dir: str, sample_batch: dict | None = None,
                          name: str = "latest", curriculum=None,
-                         device=None):
+                         device=None, mesh=None):
     """Checkpoint directory -> (trainer, payload): the trainer rebuilt from
-    the embedded config on ``device`` (``None``: the card), a fresh state
-    with the checkpoint loaded into it, the SWA slot and the iteration
-    (the reference's base_trainer.py:410-479, generate.py:88-97)."""
+    the embedded config on ``device`` (``None``: the card) or on ``mesh``
+    (every rank calls this and restores; rank 0 alone finishes a swap a
+    crash left half done), a fresh state with the checkpoint loaded into
+    it, the SWA slot and the iteration (the reference's
+    base_trainer.py:410-479, generate.py:88-97)."""
+    from affganwriting_torch.parallel.mesh import unsharded
     from affganwriting_torch.train.line_trainer import LineGanTrainer
 
-    mgr = LineCheckpointManager(ckpt_dir)
+    writer = True
+    if mesh is not None:
+        import torch.distributed as dist
+
+        writer = dist.get_rank() == 0
+        if writer:
+            recover_swap(os.path.join(os.path.abspath(ckpt_dir), name))
+        dist.barrier()
+    mgr = LineCheckpointManager(ckpt_dir, write=writer)
     trainer = LineGanTrainer.from_config(mgr.load_config(name),
                                          curriculum=curriculum,
-                                         device=device)
+                                         device=device, mesh=mesh)
     state = trainer.init_state(sample_batch)
     saved = mgr.load(name, trainer.device)
-    load_line_state(state, saved["state"])
+    with unsharded(state):
+        load_line_state(state, saved["state"])
     return trainer, {"state": state, "swa": saved["swa"],
                      "iteration": int(saved["iteration"])}

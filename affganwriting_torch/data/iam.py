@@ -1,8 +1,8 @@
 """IAM word-level ground truth: per-writer word lists and writer labels.
 
 The port's copy of ``affganwriting_tpu/data/iam.py``.  The ground-truth and
-corpus files are data: they are read by path from the JAX package's
-``data/assets/`` (or from ``AFFGAN_WORD_DATA``), never imported or copied.
+corpus files are data: the port keeps its own copy in ``data/assets/``
+(``AFFGAN_WORD_DATA`` points elsewhere).
 Writers are labelled in first-appearance order of the GT file, as the
 reference's hardcoded maps were built.
 """
@@ -13,8 +13,7 @@ import os
 from dataclasses import dataclass
 from pathlib import Path
 
-ASSETS = Path(__file__).resolve().parents[2] / "affganwriting_tpu" / "data" \
-    / "assets"
+ASSETS = Path(__file__).resolve().parent / "assets"
 
 
 @dataclass(frozen=True)

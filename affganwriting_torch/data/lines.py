@@ -4,9 +4,9 @@ The port's copy of ``affganwriting_tpu/data/lines.py`` (numpy, bit-equal
 batches): the 79-char + CTC blank charset (``IAM_char_set.json``), the
 form-page splits (``sets.json``) and ``TextData`` (random text snippets
 from ``lotr.txt``; line_generation/datasets/text_data.py:6-110).  The
-three files are data: they are read by path from the JAX package's
-``data/assets/line/`` (or from ``AFFGAN_LINE_DATA``), never imported or
-copied.  ``LineDataset`` renders deterministic synthetic lines
+three files are data: the port keeps its own copy in ``data/assets/line/``
+(``AFFGAN_LINE_DATA`` points elsewhere).  ``LineDataset`` renders
+deterministic synthetic lines
 (``data/words.synthetic_word_image``, seeded from ``hash(author)``: the
 lines repeat only within one process); it keeps an ``image_root`` as the
 JAX class does, which reads nothing from it either.  Batches are NHWC numpy arrays in [-1, 1]; the
@@ -23,12 +23,11 @@ import numpy as np
 
 from affganwriting_torch.data.words import synthetic_word_image
 
-# the JAX package's line assets, by path; AFFGAN_LINE_DATA overrides
+# the port's line assets; AFFGAN_LINE_DATA overrides
 _REF_DATA = os.environ.get(
     "AFFGAN_LINE_DATA",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "affganwriting_tpu", "data", "assets",
-        "line"))
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                 "line"))
 
 
 class LineCharset:

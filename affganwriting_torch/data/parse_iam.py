@@ -9,8 +9,8 @@ form's mean line height: short lines are vertically centered out to the
 mean height and every box gets a horizontal margin of mean-height/4.
 
 :class:`AuthorLinesIndex` groups the XMLs by form page into the
-train/valid/test splits of ``sets.json`` (read by path from the JAX
-package's line assets, as ``data/lines.py`` reads them) and the lines by
+train/valid/test splits of ``sets.json`` (the port's line assets, as
+``data/lines.py`` reads them) and the lines by
 writer id, so that items are drawn as ``a_batch_size`` same-author groups
 (datasets/author_hw_dataset.py:141-199).  :class:`AuthorLineDataset` is
 the real-image drop-in for ``data/lines.LineDataset``.

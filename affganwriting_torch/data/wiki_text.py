@@ -9,8 +9,8 @@ article source:
 - a local HF ``datasets`` cache when one exists (``datasets`` is optional
   and imported only then),
 - otherwise a plain-text corpus file (one article per paragraph), by
-  default ``lotr.txt``, read by path from the JAX package's line assets
-  (``data/lines._REF_DATA``, which ``AFFGAN_LINE_DATA`` overrides).
+  default ``lotr.txt`` of the port's line assets (``data/lines._REF_DATA``,
+  which ``AFFGAN_LINE_DATA`` overrides).
 
 Word processing is the reference's: NFKD accent removal
 (wiki_text.py:122-125), filter to the 85-char generation charset (:35),

@@ -8,7 +8,8 @@ back by R with greedy decoding.  Public layouts are the JAX package's: style
 stacks (S, H, W, 50), labels (B, T), images (B, H, W, 1), greedy ids
 (B, T - 1).  The w8a8 serving mode (``make_generate_and_read_quant_fn``)
 reads the images with R's VGG trunk in int8 and can run G's decoder convs
-in int8 too (``ops/quant.py``).
+in int8 too (``ops/quant.py``).  ``make_sharded_pipeline`` splits the word
+batch over a mesh's devices (``parallel/mesh.py``).
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``;
 with no card and no such request they raise.
@@ -185,6 +186,77 @@ def make_generate_and_read_fn(config: WordGanConfig, gen_state=None,
 
     run.run_gen, run.run_rec = run_gen, run_rec
     run.gen, run.rec = run_gen.gen, rec
+    return run
+
+
+def make_sharded_pipeline(config: WordGanConfig, mesh, gen_state=None,
+                          rec_state=None, *, seed: int = 0):
+    """Serving scale-out (JAX ``make_sharded_pipeline``): generate-and-read
+    with the word batch split over the mesh's 'data' axis, one process per
+    device.  G is placed with its TP rules (``expect_tp``: on a model axis
+    >1 the text encoder's FC pyramid and the mix hold shards and gather or
+    sum over the model group); R replicates; the style stack replicates, so
+    a batch-1 stack broadcasts untiled on every rank.  Serving is eval
+    mode: no batch statistics are shared, and on a data axis alone no rank
+    talks to another until the outputs are gathered.
+
+    Returns ``run(style_stack (S, H, W, 50), labels (B, T)) -> (images
+    (B, H, W, 1), greedy ids (B, T - 1))``, the global batch's, gathered to
+    every rank; word i is styled by stack ``i % S`` as in the single-device
+    pipeline.  ``B`` must divide over 'data' (pad or trim the word list).
+    ``run.place(style_stack)`` and ``run.shard_labels(labels)`` place the
+    inputs once, ``run.local(style, local_labels)`` is this rank's share
+    without the gather, ``run.base`` the single-device pipeline on this
+    rank's (placed) models, ``run.gen``/``run.rec`` the models.  Every rank
+    of the mesh calls ``run`` with the same arguments."""
+    from affganwriting_torch.parallel.mesh import shard_params
+    from affganwriting_torch.parallel.ops import gather_rows
+
+    dev = mesh.device
+    base = make_generate_and_read_fn(config, gen_state, rec_state,
+                                     device=dev, seed=seed)
+    gen = shard_params(mesh, base.gen, expect_tp=True)
+    n_data, rank = mesh.data, mesh.data_rank
+
+    def place(style_stack) -> torch.Tensor:
+        s = style_stack.shape[0]
+        if s != 1 and s % n_data:
+            raise ValueError(
+                f"style stack batch {s} does not divide over the "
+                f"{n_data}-way data axis; use one stack or pad")
+        return torch.as_tensor(style_stack, dtype=torch.float32, device=dev)
+
+    def shard_labels(labels) -> torch.Tensor:
+        b = labels.shape[0]
+        if b % n_data:
+            raise ValueError(
+                f"label batch {b} does not divide over the {n_data}-way "
+                "data axis; pad or trim the word list")
+        k = b // n_data
+        return torch.as_tensor(np.asarray(labels)[rank * k:][:k],
+                               device=dev).long()
+
+    @torch.inference_mode()
+    def local(style: torch.Tensor, labels: torch.Tensor):
+        s, k = style.shape[0], labels.shape[0]
+        if s == 1:
+            pyramid = gen.encode_style(style)
+        else:     # the stacks of this rank's words, global word g -> g % S
+            need = (rank * k + torch.arange(k, device=dev)) % s
+            uniq, inv = torch.unique(need, return_inverse=True)
+            pyramid = [tap[inv] for tap in gen.encode_style(style[uniq])]
+        images = gen.generate(pyramid, labels).permute(0, 2, 3, 1)
+        return images, base.run_rec(images, labels)
+
+    def run(style_stack, labels):
+        _check_batch(labels.shape[0], style_stack.shape[0])
+        images, ids = local(place(style_stack), shard_labels(labels))
+        group = mesh.data_group if n_data > 1 else None
+        return (gather_rows(images, group, rank, n_data),
+                gather_rows(ids, group, rank, n_data))
+
+    run.place, run.shard_labels, run.local = place, shard_labels, local
+    run.base, run.gen, run.rec = base, gen, base.rec
     return run
 
 

@@ -23,6 +23,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from affganwriting_torch.ops.norms import instance_norm
+from affganwriting_torch.parallel.ops import (
+    all_reduce_sum,
+    batch_random,
+    gather_cat,
+    group_size,
+    model_input,
+)
 
 _PAD_MODES = {"reflect": "reflect", "replicate": "replicate",
               "zero": "constant"}
@@ -68,12 +75,13 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
     probability 1 - p and scale it by 1 / (1 - p); with ``channels`` the
     mask is drawn per (n, c) plane of an NCHW tensor (``Dropout2d``, flax's
     ``broadcast_dims`` over H and W).  Masks come from ``generator``; p = 0
-    returns x."""
+    returns x.  Under ``parallel/ops.batch_shard`` the masks are the
+    global batch's rows of this rank."""
     if p == 0.0:
         return x
     keep_prob = 1.0 - p
     shape = x.shape[:2] + (1,) * (x.dim() - 2) if channels else x.shape
-    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    keep = batch_random(torch.rand, shape, generator, x.device) < keep_prob
     return torch.where(keep, x / keep_prob, x.new_zeros(()))
 
 
@@ -149,17 +157,27 @@ class GroupNorm(nn.Module):
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` computing in ``compute_dtype`` on f32 parameters."""
+    """``nn.Linear`` computing in ``compute_dtype`` on f32 parameters.
+    Placed on a mesh's model axis (``parallel/mesh.py``: ``tp`` set, the
+    weight and bias holding this rank's block of the output features) it
+    gathers the full output over the model group, and sums its input's
+    gradient over it."""
 
     def __init__(self, din: int, dout: int, *, bias: bool = True,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(din, dout, bias=bias)
         self.compute_dtype = compute_dtype
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        if self.tp is not None:
+            x = model_input(x, self.tp.group)
+        y = F.linear(x.to(dt), self.weight.to(dt), b)
+        if self.tp is not None:
+            y = gather_cat(y, self.tp.group, self.tp.rank, self.tp.size, -1)
+        return y
 
 
 class BatchNorm(nn.Module):
@@ -174,7 +192,14 @@ class BatchNorm(nn.Module):
     ``F.batch_norm`` would raise.  Unless ``update_stats`` is off (see
     ``frozen_stats``) it then moves the running statistics as flax does,
     ``r <- 0.9 r + 0.1 batch`` with the *biased* variance (torch's own
-    update uses the unbiased one)."""
+    update uses the unbiased one).
+
+    With ``group`` set (``parallel/mesh.py`` sets the mesh's 'data'
+    group) the batch statistics are the global batch's: the sums of x and
+    x^2 and the count are summed over the group before the mean and the
+    fast variance are formed, as GSPMD's one global program takes them.
+    Not ``nn.SyncBatchNorm``, whose Welford statistics and unbiased running
+    variance are another result."""
 
     momentum = 0.9
 
@@ -182,6 +207,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.update_stats = True
+        self.group = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -193,8 +219,16 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         dims = [d for d in range(x.dim()) if d != 1]
-        mean = x.mean(dims)
-        var = (x.square().mean(dims) - mean.square()).clamp_min(0.0)
+        if group_size(self.group) > 1:
+            c = x.shape[1]
+            sums = all_reduce_sum(torch.cat([
+                x.sum(dims), x.square().sum(dims),
+                x.new_full((1,), x.numel() // c)]), self.group)
+            mean = sums[:c] / sums[-1]
+            var = (sums[c:2 * c] / sums[-1] - mean.square()).clamp_min(0.0)
+        else:
+            mean = x.mean(dims)
+            var = (x.square().mean(dims) - mean.square()).clamp_min(0.0)
         if self.update_stats:
             with torch.no_grad():
                 m = self.momentum

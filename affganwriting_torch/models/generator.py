@@ -17,13 +17,18 @@ from affganwriting_torch.core.config import WordGanConfig
 from affganwriting_torch.models.decoder import Decoder
 from affganwriting_torch.models.style_encoders import get_style_encoder
 from affganwriting_torch.models.text_encoder import TextEncoderFC
+from affganwriting_torch.parallel.ops import all_reduce_model, model_input
 
 
 class SplitMix(nn.Module):
     """Dense over concat([style, content]) channels without the concat:
     ``style @ K[:ds] + content @ K[ds:] + b``, so a batch-1 style term
     broadcasts against batch-B content.  The weight is (features, ds + dc),
-    the transpose of the flax kernel."""
+    the transpose of the flax kernel.  Placed on a mesh's model axis
+    (``parallel/mesh.py``: ``tp`` set, the weight holding this rank's block
+    of the ds + dc input rows) each rank contracts its rows, the partial
+    sums are summed over the model group, and so are the inputs'
+    gradients."""
 
     def __init__(self, ds: int, dc: int, features: int,
                  dtype: torch.dtype = torch.bfloat16):
@@ -31,14 +36,28 @@ class SplitMix(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, ds + dc))
         self.bias = nn.Parameter(torch.zeros(features))
+        self.tp = None
+
+    def _term(self, x, k):
+        return torch.einsum("bchw,fc->bfhw", x.to(self.dtype), k).float()
 
     def forward(self, style_last, content):
         ds = style_last.shape[1]
         k = self.weight.to(self.dtype)
-        s = torch.einsum("bchw,fc->bfhw", style_last.to(self.dtype), k[:, :ds])
-        c = torch.einsum("bchw,fc->bfhw", content.to(self.dtype), k[:, ds:])
         b = self.bias.view(1, -1, 1, 1)
-        return (s.float() + c.float() + b).to(self.dtype)
+        if self.tp is None:
+            return (self._term(style_last, k[:, :ds])
+                    + self._term(content, k[:, ds:]) + b).to(self.dtype)
+        # one input for every rank, so each runs the same collectives in
+        # backward whichever rows it holds
+        b_max = max(style_last.shape[0], content.shape[0])
+        x = model_input(torch.cat([
+            style_last.expand(b_max, -1, -1, -1).to(self.dtype),
+            content.expand(b_max, -1, -1, -1).to(self.dtype)], dim=1),
+            self.tp.group)
+        lo = self.tp.rank * k.shape[1]
+        part = self._term(x[:, lo:lo + k.shape[1]], k)
+        return (all_reduce_model(part, self.tp.group) + b).to(self.dtype)
 
 
 class Generator(nn.Module):

@@ -28,6 +28,7 @@ from affganwriting_torch.models.line.char_style_multi import (
 from affganwriting_torch.models.line.count_cnn import CountCNN
 from affganwriting_torch.models.line.hwr import CNNOnlyHWR, CRNN, SmallCRNN
 from affganwriting_torch.models.line.spaced_gen import SpacedGenerator
+from affganwriting_torch.parallel.ops import batch_random
 
 
 def insert_spaces(label, label_lengths, counts, n_class: int, max_len: int,
@@ -41,8 +42,8 @@ def insert_spaces(label, label_lengths, counts, n_class: int, max_len: int,
     n2), each (B, T), else drawn from ``generator``."""
     b, t = label.shape
     if noise is None:
-        noise = tuple(torch.randn((b, t), generator=generator,
-                                  device=counts.device) for _ in range(2))
+        noise = tuple(batch_random(torch.randn, (b, t), generator,
+                                   counts.device) for _ in range(2))
     blanks = torch.round(counts[..., 0] + count_std * noise[0]).clamp_min(0)
     dups = torch.round(counts[..., 1] + dup_std * noise[1]).clamp_min(0)
     valid = torch.arange(t, device=label.device)[None, :] \

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from affganwriting_torch.models.blocks import Conv2d
+from affganwriting_torch.parallel.ops import batch_random
 
 _BLUR = torch.tensor([[1., 2., 1.], [2., 4., 2.], [1., 2., 1.]]) / 16.0
 
@@ -165,8 +166,8 @@ class StyledConvBlock(nn.Module):
         def draw(i, like):
             if noise is not None:
                 return noise[i]
-            return torch.randn(like.shape, generator=generator,
-                               device=like.device)
+            return batch_random(torch.randn, like.shape, generator,
+                                like.device)
 
         out = F.leaky_relu(self.noise1(out, draw(0, out)), 0.2)
         out = self.adain1(out, style)

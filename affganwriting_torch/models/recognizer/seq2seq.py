@@ -26,6 +26,7 @@ from affganwriting_torch.core.config import VOCAB
 from affganwriting_torch.models.blocks import dropout
 from affganwriting_torch.models.recognizer.attention import LocationAttention
 from affganwriting_torch.models.recognizer.encoder import RecEncoder
+from affganwriting_torch.parallel.ops import batch_random
 
 
 class DecoderCell(nn.Module):
@@ -109,9 +110,9 @@ class Recognizer(nn.Module):
         drawn: free running."""
         steps = self.output_max_len - 1
         if teacher_mask is None and teacher_rate > 0:
-            teacher_mask = torch.rand((steps, labels.shape[0]),
-                                      generator=generator,
-                                      device=labels.device) < teacher_rate
+            teacher_mask = batch_random(
+                torch.rand, (steps, labels.shape[0]), generator,
+                labels.device, batch_dim=1) < teacher_rate
         hidden = hidden0
         attn = enc_out.new_zeros(enc_out.shape[:2])
         prev = labels[:, 0]

@@ -16,6 +16,7 @@ import torch
 
 from affganwriting_torch.core.config import WordGanConfig
 from affganwriting_torch.gen.inference import resolve_device
+from affganwriting_torch.parallel.ops import reduce_values
 from affganwriting_torch.train import losses
 from affganwriting_torch.train.state import WordGanState
 from affganwriting_torch.train.step import (
@@ -25,14 +26,18 @@ from affganwriting_torch.train.step import (
 )
 
 
-def make_eval_step(config: WordGanConfig, *, device=None):
+def make_eval_step(config: WordGanConfig, *, device=None, mesh=None):
     """Returns ``eval_step(state, batch) -> (metrics, preds, images)``:
     metrics ``l_dis``, ``l_cla``, ``l_rec``; preds ``pred_xt``,
     ``pred_swap`` (B, T - 1); images ``xg``, ``xg_swap`` (B, H, W, 1).
     ``batch`` is the train step's without ``label_ch0``.  Leaves the
-    players in eval mode.  Runs on the card unless ``device="cpu"``."""
-    dev = resolve_device(device)
+    players in eval mode.  Runs on the card unless ``device="cpu"``.
+    With ``mesh`` (``train/step.py``'s rules) ``batch`` is this rank's
+    slice, the metrics are the global batch's and the predictions and
+    images this rank's rows."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     ls = config.label_smoothing
+    n_data = 1 if mesh is None else mesh.data
 
     @torch.inference_mode()
     def eval_step(state: WordGanState, batch: Mapping):
@@ -44,14 +49,18 @@ def make_eval_step(config: WordGanConfig, *, device=None):
         logits_xt, _ = rec(xg, label_xt)
         logits_swap, _ = rec(xg_swap, label_swap)
         wid = b["writer_ids"]
+        # the means' parts of the global means (R's loss is a sum)
         metrics = {
             "l_dis": 0.5 * (losses.gen_adv_loss(dis(xg))
-                            + losses.gen_adv_loss(dis(xg_swap))),
+                            + losses.gen_adv_loss(dis(xg_swap))) / n_data,
             "l_cla": 0.5 * (losses.writer_ce_loss(cla(xg), wid)
-                            + losses.writer_ce_loss(cla(xg_swap), wid)),
+                            + losses.writer_ce_loss(cla(xg_swap), wid))
+            / n_data,
             "l_rec": 0.5 * (losses.rec_loss(logits_xt, label_xt, ls)
                             + losses.rec_loss(logits_swap, label_swap, ls)),
         }
+        if n_data > 1:
+            metrics = reduce_values(metrics, mesh.data_group)
         preds = {"pred_xt": logits_xt.argmax(-1),
                  "pred_swap": logits_swap.argmax(-1)}
         return metrics, preds, {"xg": to_nhwc(xg), "xg_swap": to_nhwc(xg_swap)}

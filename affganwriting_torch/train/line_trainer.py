@@ -37,6 +37,21 @@ consumes the stash of no-step gradients; the stash does not survive a
 restart; the deferral runs with ``balance_loss=False`` too.
 
 The trainer runs on the card unless it is built with ``device="cpu"``.
+
+On a mesh (``mesh=``, data-parallel only: no parameter of the line stack
+matches a tensor-parallel rule, so a model axis >1 is refused, as the JAX
+``shard_state`` refuses it) every rank is handed the same global batch and
+runs each lesson on its slice, under ``train/step.py``'s rules: each
+rank's loss is its part of the global loss (the hinge, CTC, L1 and
+perceptual means over the data size; the count MSE over the global
+mask's count), the gradients are summed over the 'data' group before
+anything reads them (``balance_combine`` weighs leaves by their mean
+magnitude, which is not linear in the ranks' parts), and every random
+draw is the global batch's.  Each rank aligns its own lines on the host
+(DTW; the labels trimmed at the global batch's longest, as the band width
+depends on it); the style bank holds the global batch's styles and draws
+the global batch's samples on every rank.  The metrics are the global
+batch's, on every rank.
 """
 
 from __future__ import annotations
@@ -57,6 +72,14 @@ from affganwriting_torch.models.line.autoencoder import Autoencoder
 from affganwriting_torch.models.line.container import HWWithStyle
 from affganwriting_torch.models.line.discriminator import DiscriminatorAP
 from affganwriting_torch.ops.dtw import correct_pred
+from affganwriting_torch.parallel.mesh import shard_batch, shard_state
+from affganwriting_torch.parallel.ops import (
+    batch_shard,
+    gather_rows,
+    reduce_sum,
+    reduce_tensors,
+    reduce_values,
+)
 from affganwriting_torch.train.curriculum import Curriculum
 from affganwriting_torch.train.schedules import PartitionedAdam
 
@@ -208,6 +231,12 @@ def _clip(grads: dict) -> dict:
     return {n: g.clamp(-2.0, 2.0) for n, g in grads.items()}
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank()
+
+
 class LineGanTrainer:
     def __init__(self, n_class: int = 80, style_dim: int = 128,
                  max_gen_length: int = 128, lr: float = 2e-4,
@@ -218,8 +247,12 @@ class LineGanTrainer:
                  schedule_kw: Optional[dict] = None,
                  pretrained_hwr: str | None = None,
                  pretrained_ae: str | None = None,
-                 char_style_dim: int = 0, device=None):
-        self.device = resolve_device(device)
+                 char_style_dim: int = 0, device=None, mesh=None):
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
+        self.mesh = mesh
+        self.n_data = 1 if mesh is None else mesh.data
+        self.group = None if self.n_data == 1 else mesh.data_group
         # the constructor config, embedded in checkpoints so that
         # generation and the app rebuild the model from a checkpoint alone
         self.config_dict = dict(
@@ -291,8 +324,11 @@ class LineGanTrainer:
                                    **self._opt_cfg)
         disc_opt = torch.optim.Adam(disc.parameters(), lr=self.lr,
                                     betas=(0.5, 0.999), eps=1e-8)
-        return LineState(step=0, model=model, disc=disc, ae=ae,
-                         main_opt=main_opt, disc_opt=disc_opt)
+        state = LineState(step=0, model=model, disc=disc, ae=ae,
+                          main_opt=main_opt, disc_opt=disc_opt)
+        if self.mesh is not None:
+            shard_state(self.mesh, state)
+        return state
 
     # ----- helpers -----
     def _put(self, x, dtype=None) -> torch.Tensor:
@@ -327,10 +363,13 @@ class LineGanTrainer:
         return state.model.recognize(self._put_image(image)).float().cpu() \
             .numpy()
 
-    def spaced_label(self, state: LineState, batch: dict) -> np.ndarray:
+    def spaced_label(self, state: LineState, batch: dict,
+                     label_len: int | None = None) -> np.ndarray:
         """DTW-aligned spaced label (B, T) via the frozen recognizer, cached
         by the image bytes' hash (the HWR is frozen, so a line's alignment
-        never changes; author_hw_dataset.py:251-282)."""
+        never changes; author_hw_dataset.py:251-282).  The labels are
+        trimmed at ``label_len`` (default: the batch's longest), which sets
+        the DTW band."""
         imgs = np.asarray(batch["image"])
         keys = [hash(imgs[i].tobytes()) for i in range(imgs.shape[0])]
         cache = self._spaced_cache
@@ -338,8 +377,9 @@ class LineGanTrainer:
             logp = self.recognize(state, imgs)             # (B, T, K)
             pred = np.exp(logp).transpose(1, 0, 2)         # (T, B, K)
             label_tb = np.asarray(batch["label"]).T
-            label_tb = label_tb[: max(1, int(np.max(
-                np.asarray(batch["label_lengths"]))))]
+            if label_len is None:
+                label_len = int(np.max(np.asarray(batch["label_lengths"])))
+            label_tb = label_tb[: max(1, label_len)]
             spaced = correct_pred(pred, label_tb).T        # (B, T)
             for i, k in enumerate(keys):
                 cache[k] = spaced[i]
@@ -361,9 +401,13 @@ class LineGanTrainer:
         finally:
             state.model.spacer.eval()
 
+    def _share(self, mean: torch.Tensor) -> torch.Tensor:
+        """A mean over this rank's rows -> its part of the global mean."""
+        return mean / self.n_data if self.n_data > 1 else mean
+
     def _heads_g(self, state, img) -> torch.Tensor:
         heads = state.disc(img)          # eval: no dropout, no stats update
-        return sum(hinge_g(h) for h in heads) / len(heads)
+        return self._share(sum(hinge_g(h) for h in heads) / len(heads))
 
     def recon_losses(self, state, image, label, lengths, spaced_onehot, gen,
                      fg_mask):
@@ -382,6 +426,7 @@ class LineGanTrainer:
         ff = ae.encode(recon[..., :w].float())
         perc = sum((a.float() - b.float()).abs().mean()
                    for a, b in zip(fr, ff)) / len(fr)
+        l1, perc = self._share(l1), self._share(perc)
         return l1 + perc, (l1, perc, style, recon)
 
     def count_mse(self, state, image, label, lengths, gt_counts, gen):
@@ -398,13 +443,18 @@ class LineGanTrainer:
             model.spacer.eval()
         mask = (torch.arange(label.shape[1], device=label.device)[None, :]
                 < lengths[:, None]).float()
+        # over the global batch's count of characters
         return (mask[..., None] * (counts - gt_counts) ** 2).sum() \
-            / torch.clamp_min(mask.sum() * 2, 1.0)
+            / torch.clamp_min(reduce_sum(mask.sum(), self.group) * 2, 1.0)
 
     def _grads(self, loss, params: dict, retain: bool = False) -> dict:
-        return _fill(torch.autograd.grad(loss, list(params.values()),
-                                         allow_unused=True,
-                                         retain_graph=retain), params)
+        """The gradient of this rank's part of ``loss``, summed over the
+        data group: the global loss's."""
+        grads = _fill(torch.autograd.grad(loss, list(params.values()),
+                                          allow_unused=True,
+                                          retain_graph=retain), params)
+        reduce_tensors(grads.values(), self.group)
+        return grads
 
     # ----- lesson steps -----
     def auto_step(self, state, image, label, lengths, spaced_onehot, gen,
@@ -453,7 +503,8 @@ class LineGanTrainer:
         the HWR reads in eval mode."""
         img, _, _ = self._gen_forward(state, label, lengths, style, gen)
         l_adv = self._heads_g(state, img)
-        l_ctc = ctc_loss(state.model.recognize(img), label, lengths)
+        l_ctc = self._share(ctc_loss(state.model.recognize(img), label,
+                                     lengths))
         return l_adv, l_ctc, img
 
     def gen_step(self, state, label, lengths, style, gen, ctc_mult):
@@ -507,11 +558,12 @@ class LineGanTrainer:
             disc.eval()
         l_real = sum(hinge_d_real(h) for h in heads_r) / len(heads_r)
         l_fake = sum(hinge_d_fake(h) for h in heads_f) / len(heads_f)
-        loss = l_real + l_fake
+        loss = self._share(l_real + l_fake)
         params = list(disc.parameters())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
+        reduce_tensors((p.grad for p in params), self.group)
         state.disc_opt.step()
         state.disc_opt.zero_grad(set_to_none=True)
         disc.load_sn_state(after)
@@ -582,16 +634,47 @@ class LineGanTrainer:
     def _extract(self, state, image) -> np.ndarray:
         return state.model.extract_style(image)[0].float().cpu().numpy()
 
+    def _global_rows(self, x: torch.Tensor) -> np.ndarray:
+        """This rank's rows -> the global batch's, on the host."""
+        if self.n_data > 1:
+            x = gather_rows(x.detach(), self.group, self.mesh.data_rank,
+                            self.n_data)
+        return x.float().cpu().numpy()
+
+    def _local_rows(self, x: np.ndarray) -> np.ndarray:
+        """The global batch's rows -> this rank's."""
+        if self.n_data == 1:
+            return x
+        k = x.shape[0] // self.n_data
+        return x[self.mesh.data_rank * k:][:k]
+
+    def _sharded(self, fn, batch: dict):
+        """``fn(local batch, global label length)`` on this rank's slice
+        of the global ``batch``, the draws the global batch's, the
+        metrics it returns last summed over the data group."""
+        label_len = int(np.max(np.asarray(batch["label_lengths"])))
+        if self.mesh is None:
+            return fn(batch, label_len)
+        with batch_shard(self.mesh.data_rank, self.n_data):
+            *out, metrics = fn(shard_batch(self.mesh, batch), label_len)
+        return (*out, reduce_values(metrics, self.group))
+
     # ----- one training iteration -----
     def train_iteration(self, state: LineState, iteration: int,
                         batch: dict) -> tuple[LineState, dict]:
+        """One lesson of the curriculum on ``batch`` (on a mesh: the global
+        batch, the same on every rank)."""
+        return self._sharded(
+            lambda b, n: self._iteration(state, iteration, b, n), batch)
+
+    def _iteration(self, state, iteration, batch, label_len):
         lesson = self.curriculum.get_lesson(iteration)
         metrics: dict = {}
         gen = self.generator
         image, label, lengths = self._put_batch(batch)
 
         if "count" in lesson:
-            spaced = self.spaced_label(state, batch)
+            spaced = self.spaced_label(state, batch, label_len)
             gt = self.count_targets(
                 spaced, np.asarray(batch["label"]),
                 np.asarray(batch["label_lengths"]))
@@ -600,7 +683,7 @@ class LineGanTrainer:
             metrics.update(m)
         if "auto" in lesson or "auto-gen" in lesson:
             spaced_onehot = self._spaced_onehot(
-                self.spaced_label(state, batch))
+                self.spaced_label(state, batch, label_len))
             fg = self._fg(batch, image)
             if "auto-gen" in lesson:
                 saved_ctc, saved_adv = self._take_saved_grads(state)
@@ -611,13 +694,14 @@ class LineGanTrainer:
                 state, m, style = self.auto_step(
                     state, image, label, lengths, spaced_onehot, gen, fg)
             metrics.update(m)
-            self.style_bank.add(style.float().cpu().numpy())
+            self.style_bank.add(self._global_rows(style))
         if "gen" in lesson or "disc" in lesson:
-            style = self.style_bank.sample(image.shape[0])
+            style = self.style_bank.sample(image.shape[0] * self.n_data)
             if style is None:
-                style = self._extract(state, image)
+                style = self._global_rows(
+                    self._put(self._extract(state, image)))
                 self.style_bank.add(style)
-            style = self._put(style, torch.float32)
+            style = self._put(self._local_rows(style), torch.float32)
             if "gen" in lesson:
                 if "no-step" in lesson:
                     # defer: the reference stashes this lesson's gradients
@@ -667,40 +751,46 @@ class LineGanTrainer:
         def host(x):
             return x.float().permute(0, 2, 3, 1).cpu().numpy()
 
+        if self.mesh is not None and _rank() != 0:
+            return None      # every rank draws the bank alike; rank 0 writes
         return write_line_sheet(
             out_dir, f"iter_{iteration}", host(image), host(recon),
             host(fake), texts=batch.get("texts"), disc_scores=scores)
 
     @classmethod
     def from_config(cls, config: dict, curriculum=None,
-                    device=None) -> "LineGanTrainer":
+                    device=None, mesh=None) -> "LineGanTrainer":
         """Rebuild a trainer from a checkpoint's embedded config (the
         reference's generate.py:88-97, app.py:65-77)."""
         cfg = dict(config)
         cfg["slow_param_names"] = tuple(cfg.get("slow_param_names", ()))
         cfg["freeze_param_names"] = tuple(cfg.get("freeze_param_names", ()))
-        return cls(curriculum=curriculum, device=device, **cfg)
+        return cls(curriculum=curriculum, device=device, mesh=mesh, **cfg)
 
     # ----- validation (base_trainer.py:278-311 `_valid_epoch`) -----
     def validate(self, state: LineState, batches: Iterator[dict],
                  max_batches: int | None = None) -> dict:
         """The curriculum's valid lesson set (recon + spacer count), no
         updates, averaged over batches.  Deterministic: every batch's
-        randomness is seeded 0, so two validations of a state agree."""
+        randomness is seeded 0, so two validations of a state agree.  On
+        a mesh the batches are global and the means the global batch's."""
         sums: dict[str, float] = {}
         n = 0
-        for batch in batches:
-            if max_batches is not None and n >= max_batches:
-                break
-            spaced = self.spaced_label(state, batch)
+        def one(batch, label_len):
+            spaced = self.spaced_label(state, batch, label_len)
             gt = self.count_targets(
                 spaced, np.asarray(batch["label"]),
                 np.asarray(batch["label_lengths"]))
             image, label, lengths = self._put_batch(batch)
-            m = self.valid_step(
+            return (self.valid_step(
                 state, image, label, lengths, self._spaced_onehot(spaced),
                 torch.Generator(self.device).manual_seed(0),
-                self._fg(batch, image), self._put(gt))
+                self._fg(batch, image), self._put(gt)),)
+
+        for batch in batches:
+            if max_batches is not None and n >= max_batches:
+                break
+            m, = self._sharded(one, batch)
             for k, v in m.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             n += 1
@@ -749,7 +839,9 @@ class LineGanTrainer:
         checkpoint's ``iteration`` as ``start_iteration``, so that the
         curriculum and schedule clock goes on where it stopped
         (``state.step`` under-counts).  The SWA average is
-        ``self.swa_state`` after fit."""
+        ``self.swa_state`` after fit.  On a mesh ``batches`` are global,
+        and rank 0's ``ckpt`` writes (the other ranks' are built with
+        ``write=False``) and its ``logger`` logs."""
         import signal
 
         from affganwriting_torch.data.prefetch import prefetch
@@ -821,6 +913,10 @@ class LineGanTrainer:
                                       lambda: _save_latest(state),
                                       label="line-gan")
             _save_latest(state)
+            if self.mesh is not None:
+                import torch.distributed as dist
+
+                dist.barrier()       # the other ranks may restore it next
         finally:
             signal.signal(signal.SIGINT, prev)
         return state

@@ -14,8 +14,17 @@ As in the JAX trainer, nothing inside the epoch reads a value back from the
 device: the metrics and R's logits stay device tensors until the pass after
 the loop, which averages the losses and computes the CERs.  Dropout masks
 come from one ``torch.Generator`` on the device, seeded from ``seed``; on a
-resume it is seeded afresh, as the JAX trainer re-seeds its key.  The
-multi-device trainer (a ``mesh``) is not ported yet.
+resume it is seeded afresh, as the JAX trainer re-seeds its key.
+
+On a mesh (``mesh=``, one process per device, ``parallel/mesh.py``) every
+rank builds the same global batches, keeps its slice and runs the sharded
+step (``train/step.py``), whose metrics are the global batch's; the CER
+counts are summed over the 'data' group, so the epoch's results and the
+early-stop decision are the same on every rank.  Every rank restores;
+only rank 0 writes checkpoints (all ranks gather the tensor-parallel
+shards for it, ``parallel/mesh.unsharded``), metrics and sheets.  The
+synthetic words seed from ``hash(word)``: ranks that should render the
+same images need one ``PYTHONHASHSEED``.
 """
 
 from __future__ import annotations
@@ -34,11 +43,17 @@ from affganwriting_torch.data.prefetch import prefetch
 from affganwriting_torch.data.words import WordStyleDataset
 from affganwriting_torch.eval.cer import CERAccumulator
 from affganwriting_torch.gen.inference import resolve_device
+from affganwriting_torch.parallel.mesh import (
+    shard_batch,
+    shard_state,
+    unsharded,
+)
+from affganwriting_torch.parallel.ops import reduce_values
 from affganwriting_torch.train.eval_step import make_eval_step
 from affganwriting_torch.train.schedules import PlateauScaler
 from affganwriting_torch.train.state import init_state, set_rec_lr
 from affganwriting_torch.train.step import make_phased_train_step
-from affganwriting_torch.utils.logging import MetricsLogger
+from affganwriting_torch.utils.logging import MetricsLogger, NullLogger
 from affganwriting_torch.utils.memwatch import maybe_restart
 
 
@@ -62,7 +77,16 @@ class EarlyStopping:
                 self.should_stop = True
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank()
+
+
 class WordGanTrainer:
+    mesh = None      # one device: this process writes its own files
+    writer = True
+
     def __init__(
         self,
         config: WordGanConfig,
@@ -77,16 +101,24 @@ class WordGanTrainer:
         rec_plateau: bool = False,
         restart_rss_gb: float = 48.0,
         device=None,
+        mesh=None,
     ):
-        """Runs on the card unless ``device="cpu"``.  Resumes from
-        ``<logdir>/ckpt/latest`` when it exists."""
-        self.device = resolve_device(device)
+        """Runs on the card unless ``device="cpu"``, or on ``mesh``'s
+        device.  Resumes from ``<logdir>/ckpt/latest`` when it exists."""
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
+        self.mesh = mesh
+        if mesh is not None and config.batch_size % mesh.data:
+            raise ValueError(
+                f"batch_size {config.batch_size} not divisible by the mesh "
+                f"'data' axis ({mesh.data})")
+        self.writer = mesh is None or _rank() == 0
         self.config = config
         self.train_data = train_data
         self.test_data = test_data
-        self.logger = MetricsLogger(logdir)
+        self.logger = MetricsLogger(logdir) if self.writer else NullLogger()
         self.logdir = logdir
-        self.ckpt = CheckpointManager(f"{logdir}/ckpt")
+        self.ckpt = CheckpointManager(f"{logdir}/ckpt", write=self.writer)
         self.eval_every = eval_every
         self.save_every = save_every
         self.save_latest_every_steps = save_latest_every_steps
@@ -98,16 +130,44 @@ class WordGanTrainer:
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.state = init_state(config, self.device, seed)
         self.train_step = make_phased_train_step(
-            config, merge_dg=config.merge_dg, device=self.device)
-        self.eval_step = make_eval_step(config, device=self.device)
+            config, merge_dg=config.merge_dg, device=self.device, mesh=mesh)
+        self.eval_step = make_eval_step(config, device=self.device,
+                                        mesh=mesh)
         self.start_epoch = 0
         self._gsteps = 0
         self._interrupted = False
+        if mesh is not None:
+            # rank 0 finishes a swap a crash left half done before any
+            # rank looks for the file
+            import torch.distributed as dist
+
+            if self.writer:
+                self.ckpt.latest_exists()
+            dist.barrier()
         if self.ckpt.latest_exists():
             self.ckpt.restore("latest", self.state)
             self.start_epoch = self.state.step // max(
                 1, len(train_data) // config.batch_size)
             print(f"resumed from latest at epoch ~{self.start_epoch}")
+        if mesh is not None:
+            shard_state(mesh, self.state)
+
+    def _place(self, batch: dict) -> dict:
+        """This rank's slice of a global batch on a mesh."""
+        return batch if self.mesh is None else shard_batch(self.mesh, batch)
+
+    def _saved(self, save, *args) -> None:
+        """``save(self.state, self.config, *args)`` with the state whole:
+        on a mesh every rank gathers, rank 0 writes (the manager of every
+        other rank writes nothing), and all wait for the file."""
+        if self.mesh is None:
+            save(self.state, self.config, *args)
+            return
+        import torch.distributed as dist
+
+        with unsharded(self.state):
+            save(self.state, self.config, *args)
+        dist.barrier()
 
     def train_epoch(self, epoch: int) -> dict:
         """One pass over the training writers; logs and returns the
@@ -119,6 +179,7 @@ class WordGanTrainer:
         pending = []
         # batches are built on a background thread (data/prefetch.py)
         for batch in prefetch(self.train_data.batches(epoch=epoch)):
+            batch = self._place(batch)
             self.state, metrics, extras = self.train_step(
                 self.state, batch, self.generator)
             # keep only what the CER pass reads, not the style stacks
@@ -131,7 +192,7 @@ class WordGanTrainer:
             self._gsteps += 1
             self._stop_if_interrupted()
             if self._gsteps % self.save_latest_every_steps == 0:
-                self.ckpt.save_latest(self.state, self.config)
+                self._saved(self.ckpt.save_latest)
         out = self._reduce(pending, n, ("cer_tr", "cer_te", "cer_te2"))
         out["epoch_seconds"] = time.time() - t0
         out["steps_per_sec"] = n / max(out["epoch_seconds"], 1e-9)
@@ -140,7 +201,9 @@ class WordGanTrainer:
 
     def _reduce(self, pending, n: int, cer_keys: tuple) -> dict:
         """Epoch means of the metrics and the CER of each (logits or ids,
-        labels) pair, read back from the device after the loop."""
+        labels) pair, read back from the device after the loop.  On a mesh
+        the metrics are already the global batch's and the CER counts of
+        this rank's rows are summed over the 'data' group."""
         sums: dict[str, float] = {}
         cers = {k: CERAccumulator() for k in cer_keys}
         for metrics, pairs in pending:
@@ -150,6 +213,15 @@ class WordGanTrainer:
                 ids = pred.argmax(-1) if pred.is_floating_point() else pred
                 cers[k].add(
                     ids, torch.as_tensor(labels, device=ids.device))
+        if self.mesh is not None and self.mesh.data > 1:
+            counts = reduce_values(
+                {f"{k}/{f}": torch.tensor(float(getattr(acc, f)),
+                                          device=self.device)
+                 for k, acc in cers.items() for f in ("ed", "length")},
+                self.mesh.data_group)
+            for k, acc in cers.items():
+                acc.ed, acc.length = (int(counts[f"{k}/{f}"])
+                                      for f in ("ed", "length"))
         out = {k: v / max(n, 1) for k, v in sums.items()}
         out.update({k: acc.value() for k, acc in cers.items()})
         return out
@@ -162,6 +234,7 @@ class WordGanTrainer:
         assert self.test_data is not None
         pending, first, n = [], None, 0
         for batch in self.test_data.batches(epoch=epoch, shuffle=False):
+            batch = self._place(batch)
             metrics, preds, images = self.eval_step(self.state, batch)
             if n == 0:
                 first = (batch, preds, images)
@@ -169,7 +242,7 @@ class WordGanTrainer:
                 "cer_te": (preds["pred_xt"], batch["label_xt"]),
                 "cer_te2": (preds["pred_swap"], batch["label_xt_swap"])}))
             n += 1
-        if first is not None:
+        if first is not None and self.writer:
             self._dump_sheet(epoch, *first)
         out = self._reduce(pending, n, ("cer_te", "cer_te2"))
         self.logger.log(epoch, out, group="eval")
@@ -207,7 +280,7 @@ class WordGanTrainer:
         ``KeyboardInterrupt``.  Called only where no step is running."""
         if self._interrupted:
             print("SIGINT: saving latest checkpoint before exit")
-            self.ckpt.save_latest(self.state, self.config)
+            self._saved(self.ckpt.save_latest)
             raise KeyboardInterrupt
 
     def fit(self, epochs: int) -> None:
@@ -231,20 +304,19 @@ class WordGanTrainer:
                         and epoch % self.eval_every == 0):
                     monitor = self.evaluate(epoch)
                     self._plateau_step(monitor)
-                    self.ckpt.maybe_save_best(
-                        self.state, self.config, monitor)
+                    self._saved(self.ckpt.maybe_save_best, monitor)
                     self.early.update(monitor)
                     if self.early.should_stop:
                         print(f"early stop at epoch {epoch} "
                               f"(best {self.early.best:.3f})")
                         break
                 if epoch % self.save_every == 0 and epoch > 0:
-                    self.ckpt.save_step(self.state, self.config, epoch)
+                    self._saved(self.ckpt.save_step, epoch)
                 self._stop_if_interrupted()
                 maybe_restart(
                     self.restart_rss_gb,
-                    lambda: self.ckpt.save_latest(self.state, self.config),
+                    lambda: self._saved(self.ckpt.save_latest),
                     label="word-gan")
-            self.ckpt.save_latest(self.state, self.config)
+            self._saved(self.ckpt.save_latest)
         finally:
             signal.signal(signal.SIGINT, prev)

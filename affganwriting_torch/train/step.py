@@ -28,6 +28,30 @@ Two forms (``merge_dg``):
 Both give the same update.  The JAX package's ``make_train_step``, the whole
 update as one XLA program, exists for XLA's sake (one program to jit or
 shard); in eager PyTorch it is the 4-phase form, ``make_train_step``.
+
+On a mesh (``parallel/mesh.py``; the state placed by ``shard_state``)
+each rank runs the step on its slice of the batch and the step computes
+what the single-process step computes on the whole batch, as GSPMD's one
+global program does:
+
+* each rank's loss is its part of the global loss.  R's loss is
+  sum-reduced over the rows, so a rank's part is its own sum; the
+  adversarial, BCE, writer cross-entropy and L1 terms are means, so a
+  rank's part is its local mean over the data size (local sum over the
+  global count).  Averaging the ranks' gradients, as DDP does, would
+  weigh the sum term wrongly;
+* each player's gradients are summed over the 'data' group in one
+  coalesced all-reduce before its optimizer step (DDP's hooks do not fit
+  the phases: frozen players, several forwards before one backward), and
+  so are the reported metrics; on a 'model' axis the replicated
+  parameters' gradients are then averaged over the model group
+  (``sync_grads``);
+* train-mode BatchNorms take the global batch's statistics
+  (``models/blocks.BatchNorm``), and every dropout mask is the global
+  batch's, drawn from the same-seeded generator on every rank
+  (``parallel/ops.batch_shard``);
+* on a 'model' axis the TP-ruled layers gather their outputs or sum their
+  partial products over the model group (``Linear``, ``SplitMix``).
 """
 
 from __future__ import annotations
@@ -39,6 +63,12 @@ import torch
 from affganwriting_torch.core.config import WordGanConfig
 from affganwriting_torch.gen.inference import resolve_device
 from affganwriting_torch.models.blocks import frozen_stats
+from affganwriting_torch.parallel.ops import (
+    batch_shard,
+    reduce_grads,
+    reduce_tensors,
+    reduce_values,
+)
 from affganwriting_torch.train import losses
 from affganwriting_torch.train.state import WordGanState
 
@@ -68,9 +98,34 @@ def generate_pair(gen, style, label_xt, label_xt_swap):
                                                          label_xt_swap)
 
 
-def _update(opt: torch.optim.Optimizer, loss: torch.Tensor) -> None:
+def sync_grads(params, mesh) -> None:
+    """The gradients of ``params`` for the optimizer step on ``mesh``:
+    summed over the 'data' group (each rank's loss is its part of the
+    global loss); a replicated parameter's is then averaged over the
+    'model' group.  The model ranks compute it redundantly, but not bit
+    for bit alike on the card (cuDNN's weight gradients and the embedding
+    backward accumulate with atomics), and replicas that step apart drift
+    apart."""
+    if mesh is None:
+        return
+    params = list(params)
+    if mesh.data > 1:
+        reduce_grads(params, mesh.data_group)
+    if mesh.model > 1:
+        rep = [p.grad for p in params
+               if p.grad is not None and not hasattr(p, "tp_dim")]
+        reduce_tensors(rep, mesh.group("model"))
+        for g in rep:
+            g.div_(mesh.model)
+
+
+def _update(opt: torch.optim.Optimizer, loss: torch.Tensor,
+            mesh=None) -> None:
+    """Back-propagate this rank's part of the loss, bring the gradients
+    together over ``mesh`` (``sync_grads``) and step."""
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    sync_grads((p for g in opt.param_groups for p in g["params"]), mesh)
     opt.step()
 
 
@@ -79,7 +134,7 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_phased_train_step(config: WordGanConfig, merge_dg: bool = False, *,
-                           device=None):
+                           device=None, mesh=None):
     """Returns ``step(state, batch, generator, on_phase=None) -> (state,
     metrics, extras)``.  ``state`` (``train/state.py``) is updated in place
     and returned; ``batch`` holds ``style_imgs`` (B, H, W, 50),
@@ -89,9 +144,19 @@ def make_phased_train_step(config: WordGanConfig, merge_dg: bool = False, *,
     ``on_phase(name)`` is called after each phase ("rec", "cla", then
     "dis_gen" merged or "dis" and "gen").  The metrics and extras are the
     JAX step's, as detached tensors; ``extras["xg"]`` is (B, H, W, 1).
-    Runs on the card unless ``device="cpu"``."""
-    dev = resolve_device(device)
+    Runs on the card unless ``device="cpu"``.
+
+    With ``mesh`` the step runs on the mesh's device, ``batch`` is this
+    rank's slice (``parallel/mesh.shard_batch``), the metrics are the
+    global batch's, on every rank, and the extras this rank's rows."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     ls = config.label_smoothing
+    n_data = 1 if mesh is None else mesh.data
+    group = None if n_data == 1 else mesh.data_group
+
+    def share(mean_loss):
+        """A mean over this rank's rows -> its part of the global mean."""
+        return mean_loss / n_data if n_data > 1 else mean_loss
 
     def phase_rec(state, b, rng):
         rec = state.rec.model.train()
@@ -101,13 +166,14 @@ def make_phased_train_step(config: WordGanConfig, merge_dg: bool = False, *,
                 return losses.rec_loss(logits, b["label_ch0"], ls), logits
         logits, _ = rec(b["img_ch0"], b["label_ch0"], rng)
         loss = losses.rec_loss(logits, b["label_ch0"], ls)
-        _update(state.rec.opt, loss)
+        _update(state.rec.opt, loss, mesh)
         return loss.detach(), logits.detach()
 
     def phase_cla(state, b):
         cla = state.cla.model.train()
-        loss = losses.writer_ce_loss(cla(b["img_ch0"]), b["writer_ids"])
-        _update(state.cla.opt, loss)
+        loss = share(losses.writer_ce_loss(cla(b["img_ch0"]),
+                                           b["writer_ids"]))
+        _update(state.cla.opt, loss, mesh)
         return loss.detach()
 
     def phase_dis(state, b, xg, xg_swap):
@@ -117,11 +183,11 @@ def make_phased_train_step(config: WordGanConfig, merge_dg: bool = False, *,
         quad = torch.cat([b["img_ch0"], b["img_ch1"], xg.detach(),
                           xg_swap.detach()])
         s = state.dis.model.train()(quad)
-        loss = (0.5 * (losses.dis_real_loss(s[:n])
-                       + losses.dis_real_loss(s[n:2 * n]))
-                + 0.5 * (losses.dis_fake_loss(s[2 * n:3 * n])
-                         + losses.dis_fake_loss(s[3 * n:])))
-        _update(state.dis.opt, loss)
+        loss = share(0.5 * (losses.dis_real_loss(s[:n])
+                            + losses.dis_real_loss(s[n:2 * n]))
+                     + 0.5 * (losses.dis_fake_loss(s[2 * n:3 * n])
+                              + losses.dis_fake_loss(s[3 * n:])))
+        _update(state.dis.opt, loss, mesh)
         return loss.detach()
 
     def phase_gen(state, b, xg, xg_swap, rng):
@@ -132,15 +198,16 @@ def make_phased_train_step(config: WordGanConfig, merge_dg: bool = False, *,
                          state.rec.model.train())
         both = torch.cat([xg, xg_swap])
         d_s = dis(both)
-        l_dis = 0.5 * (losses.gen_adv_loss(d_s[:n])
-                       + losses.gen_adv_loss(d_s[n:]))
+        l_dis = share(0.5 * (losses.gen_adv_loss(d_s[:n])
+                             + losses.gen_adv_loss(d_s[n:])))
         c_s = cla(both)
-        l_cla = 0.5 * (losses.writer_ce_loss(c_s[:n], b["writer_ids"])
-                       + losses.writer_ce_loss(c_s[n:], b["writer_ids"]))
+        l_cla = share(0.5 * (
+            losses.writer_ce_loss(c_s[:n], b["writer_ids"])
+            + losses.writer_ce_loss(c_s[n:], b["writer_ids"])))
         if config.oov:
             l_l1 = torch.zeros((), device=dev)
         else:
-            l_l1 = losses.recon_l1(xg, b["img_xt"])
+            l_l1 = share(losses.recon_l1(xg, b["img_xt"]))
         with frozen_stats(rec):
             logits_xt, _ = rec(xg, b["label_xt"], rng)
             logits_swap, _ = rec(xg_swap, b["label_xt_swap"], rng)
@@ -154,6 +221,7 @@ def make_phased_train_step(config: WordGanConfig, merge_dg: bool = False, *,
         # as jax.grad gives
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
+        sync_grads(params, mesh)
         state.gen.opt.step()
         state.gen.opt.zero_grad(set_to_none=True)
         aux = {"l_dis": l_dis, "l_cla": l_cla, "l_l1": l_l1, "l_rec": l_rec,
@@ -163,6 +231,13 @@ def make_phased_train_step(config: WordGanConfig, merge_dg: bool = False, *,
 
     def step(state: WordGanState, batch: Mapping, generator: torch.Generator,
              on_phase: Callable[[str], None] | None = None):
+        if mesh is None:
+            return run(state, batch, generator, on_phase)
+        with batch_shard(mesh.data_rank, n_data):
+            state, metrics, extras = run(state, batch, generator, on_phase)
+        return state, reduce_values(metrics, group), extras
+
+    def run(state, batch, generator, on_phase):
         mark = on_phase or (lambda name: None)
         b = to_device_batch(batch, dev)
         l_rec_tr, rec_logits_tr = phase_rec(state, b, generator)
@@ -193,8 +268,9 @@ def make_phased_train_step(config: WordGanConfig, merge_dg: bool = False, *,
     return step
 
 
-def make_train_step(config: WordGanConfig, *, device=None):
+def make_train_step(config: WordGanConfig, *, device=None, mesh=None):
     """The JAX package's one-program step.  It exists there for XLA, which
     needs a single program to jit or shard; eager PyTorch has no such
     need, so here it is the 4-phase form of ``make_phased_train_step``."""
-    return make_phased_train_step(config, merge_dg=False, device=device)
+    return make_phased_train_step(config, merge_dg=False, device=device,
+                                  mesh=mesh)

@@ -51,3 +51,15 @@ class MetricsLogger:
         self._f.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullLogger:
+    """``MetricsLogger``'s interface writing nothing: the logger of a rank
+    other than 0 on a mesh, where rank 0 writes for all."""
+
+    def log(self, step: int, scalars: Mapping[str, float],
+            group: str = "train") -> None:
+        pass
+
+    def close(self) -> None:
+        pass

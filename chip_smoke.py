@@ -143,6 +143,24 @@ non-zero before printing any result.  Phases, each fatal on failure:
    ``up_chain`` call traced by ``torch.profiler`` (``in_relu`` twice,
    ``phase_head`` once).
 
+14. multi-device (``parallel/``) on the one card: (a) NCCL at world 1,
+   ``default_config()``, 1 writer x 256 words through
+   ``make_sharded_pipeline`` on a 1x1 mesh, bit-equal to the unsharded
+   call (in_relu 2, phase_head 1 launches, added to the kernels line), and
+   ``generate_word --mesh auto`` under ``torch.distributed.run`` writing
+   the files of ``--mesh none``; (b) two processes sharing the card over
+   gloo (NCCL takes one card a rank): the sharded pipeline at data=2, 128
+   words a rank, against the unsharded call (``bf16_tolerance_ok``, 2% of
+   tokens), the kernels at the rank's shapes (``phase_head`` at its batch
+   128 strip height) against their plain versions, CUDA-event times per
+   rank; (c) the word step at full width (batch 8, f32, SGD, TF32 off,
+   R's dropout 0) on data=2 and on 1x2 against one process's step
+   (``MESH_STEP_*`` plus twice the one-process step's own spread with the
+   batch's rows reversed); (d) an
+   auto and a disc lesson of ``LineGanTrainer`` at its published widths,
+   2 lines a rank, against one process's (``MESH_LINE_*``).  Two processes
+   time-slicing one card say nothing about scaling.
+
 Each phase prints its seconds.  The last lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -3045,6 +3063,431 @@ def phase_profilers(torch, card: str, counts, zero, kernel_rows) -> dict:
     return out
 
 
+# phase 14: two ranks share the one card over gloo (NCCL takes one card a
+# rank); the ranks' programs below run in fresh processes
+# (parallel/multihost.spawn), each printing one "PHASE14 {json}" line
+MESH_WORDS = WORDS * 32            # 1 writer x 256 words, 128 a rank
+# the word step on a mesh against one process, f32 with TF32 off: losses
+# within 1e-5 + rtol x |loss|, the SGD-updated parameters per player
+# absolute (the JAX DP test's limits, tests/test_parallel_dp.py), BatchNorm
+# statistics absolute; each plus twice the one-process step's own spread
+# under another summation order (``_mesh_step``)
+MESH_STEP_LOSS_RTOL = 5e-5
+MESH_STEP_TOL = {"gen": 5e-3, "dis": 1e-7, "cla": 1e-7, "rec": 5e-6}
+MESH_STATS_TOL = 1e-6
+# the line lessons on a mesh against one process: metrics relative; the
+# gradients each lesson hands its optimizers in relative L2, over each
+# tree (main, D) and per leaf (against the larger of the leaf's norm and
+# 1e-3 of the largest leaf's).  D's deepest leaves carry f32 noise with a
+# heavy tail (phase 12's readings, LINE_GRAD_TOL's notes): a CPU rehearsal
+# of this check read 4.2e-2 on c4b1.bias between two summation orders,
+# where a gradient missing its all-reduce is off by ~0.5
+MESH_LINE_RTOL = 1e-3
+MESH_LINE_GRAD_TOL = 1e-2
+MESH_LINE_LEAF_TOL = 0.1
+
+
+def _mesh_serve(torch, rank: int, card: str) -> dict:
+    """14b on one rank: the sharded pipeline at data=2 on the full
+    request, launches, parity with this rank's unsharded call, the kernels
+    at this rank's shapes against their plain versions, CUDA-event
+    times."""
+    import numpy as np
+
+    from affganwriting_torch.core.config import default_config
+    from affganwriting_torch.gen.inference import (
+        encode_labels,
+        make_sharded_pipeline,
+    )
+    from affganwriting_torch.ops.in_relu_cuda import in_relu, in_relu_plain
+    from affganwriting_torch.ops.phase_head_cuda import (
+        phase_head,
+        phase_head_plain,
+        strip_rows,
+    )
+    from affganwriting_torch.parallel.mesh import make_mesh
+
+    def counts():
+        return (in_relu.launches, phase_head.launches_wgmma,
+                phase_head.launches)
+
+    mesh = make_mesh(2, 1, device="cuda:0")
+    cfg = default_config()
+    run = make_sharded_pipeline(cfg, mesh, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    style = rng.normal(size=(2, cfg.img_height, cfg.img_width,
+                             cfg.style_stack)).astype(np.float32)[:1]
+    labels = encode_labels(MESH_WORDS, cfg.output_max_len)
+    in_relu.launches = phase_head.launches_wgmma = phase_head.launches = 0
+    images, ids = run(style, labels)
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches != (2, 1, 0):
+        raise AssertionError(f"rank {rank}: a sharded call launched "
+                             f"{launches}, not in_relu 2, phase_head 1")
+    ref_img, ref_ids = run.base(style, labels)        # whole batch, 1 rank
+    err, ok = bf16_tolerance_ok(images, ref_img)
+    flips = float((ids != ref_ids).float().mean())
+    if not ok or flips > 0.02 or tuple(images.shape) != tuple(ref_img.shape):
+        raise AssertionError(f"rank {rank}: sharded images max|err| {err} "
+                             f"(ok={ok}), token flips {flips}")
+    # the kernels at this rank's shapes (batch 128) against the plain
+    # versions, as phase 2 holds them
+    gen = torch.Generator(device="cuda").manual_seed(SEED + rank)
+    kerr = {}
+    for shape in ((128, 256, 16, 54), (128, 128, 32, 108)):
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(
+            torch.bfloat16)
+        e, good = bf16_tolerance_ok(in_relu(x), in_relu_plain(x))
+        if not good:
+            raise AssertionError(f"rank {rank}: in_relu {shape} max|err| {e}")
+        kerr[f"in_relu{shape}"] = e
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    xp = torch.relu(torch.randn((128, 256, 36, 112), generator=gen,
+                                device="cuda")).to(torch.bfloat16)
+    kc = (torch.randn((256, 100), generator=gen, device="cuda")
+          / (49 * 64) ** 0.5).to(torch.bfloat16)
+    bias4 = torch.randn(4, generator=gen, device="cuda") * 0.1
+    e, good = bf16_tolerance_ok(phase_head(xp, kc, bias4),
+                                phase_head_plain(xp, kc, bias4))
+    if not good:
+        raise AssertionError(f"rank {rank}: phase_head batch 128 max|err| {e}")
+    kerr["phase_head(128, 256, 36, 112)"] = e
+    # device time of this rank's call, the gather included, and of its
+    # share alone (CUDA events, median of 5 after 2 warm-ups)
+    placed = (run.place(style), run.shard_labels(labels))
+
+    def event_ms(fn):
+        for _ in range(2):
+            fn()
+        out = []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            out.append(a.elapsed_time(b))
+        return statistics.median(out)
+
+    call_ms = event_ms(lambda: run(style, labels))
+    local_ms = event_ms(lambda: run.local(*placed))
+    return {"launches": launches, "max_abs_err": err, "token_flips": flips,
+            "kernel_max_abs_err": kerr, "call_ms": call_ms,
+            "local_ms": local_ms, "words": len(MESH_WORDS),
+            "strip_rows": {"batch_128": strip_rows(128, 32, sms),
+                           "batch_256": strip_rows(256, 32, sms)},
+            "card": card}
+
+
+def _state_tensors(torch, state) -> dict:
+    from affganwriting_torch.parallel.mesh import unsharded
+    from affganwriting_torch.train.state import PLAYERS
+
+    with unsharded(state):
+        return {f"{n}/{k}": v.detach().clone() for n in PLAYERS
+                for k, v in getattr(state, n).model.state_dict().items()}
+
+
+def _mesh_step(torch, rank: int) -> dict:
+    """14c on one rank: the SGD word step at full width (batch 8, f32, TF32
+    off, R's dropout 0) on data=2 and on 1x2, against one process's step
+    on rank 0.  G's update at random weights is ill-conditioned (f32
+    reassociation moves it by several percent, ``train/parity.py``), so
+    rank 0 also takes the one-process step on the batch in reverse row
+    order, the same sums in another order, and each limit is
+    ``MESH_STEP_*`` plus twice that floor."""
+    import torch.distributed as dist
+
+    from affganwriting_torch.core.config import default_config
+    from affganwriting_torch.parallel.mesh import (
+        make_mesh,
+        shard_batch,
+        shard_state,
+    )
+    from affganwriting_torch.train.state import init_state
+    from affganwriting_torch.train.step import make_phased_train_step
+
+    cfg = default_config().replace(compute_dtype="float32", optimizer="sgd")
+    batch = {k: v.cpu().numpy() for k, v in random_batch(
+        torch, cfg, 8, torch.Generator().manual_seed(SEED), "cpu").items()}
+
+    def one_step(mesh, b):
+        state = init_state(cfg, "cuda", seed=SEED, rec_dropout=0.0)
+        if mesh is not None:
+            shard_state(mesh, state)
+            b = shard_batch(mesh, b)
+        step = make_phased_train_step(cfg, merge_dg=cfg.merge_dg, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m, _ = step(state, b, torch.Generator("cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        return ({k: float(v) for k, v in m.items()},
+                _state_tensors(torch, state), time.perf_counter() - t0)
+
+    def diffs(got, want):
+        """(|loss diffs|, max |diff| per player and of the BN stats)."""
+        worst: dict[str, float] = {}
+        for k, v in want[1].items():
+            kind = "stats" if k.endswith(("running_mean", "running_var")) \
+                else k.split("/")[0]
+            worst[kind] = max(worst.get(kind, 0.0),
+                              float((got[1][k] - v).abs().max()))
+        return {k: abs(got[0][k] - v) for k, v in want[0].items()}, worst
+
+    ref = floor = None
+    if rank == 0:
+        ref = one_step(None, batch)
+        floor = diffs(one_step(None, {k: v[::-1].copy()
+                                      for k, v in batch.items()}), ref)
+    out = {}
+    for name, shape in (("data2", (2, 1)), ("data1_model2", (1, 2))):
+        got = one_step(make_mesh(*shape, device="cuda:0"), batch)
+        res = {"step_wall_s": got[2], "checksum": float(sum(
+            v.double().sum() for v in got[1].values()))}
+        if ref is not None:
+            loss_d, worst = diffs(got, ref)
+            res.update(loss_diff=loss_d, max_abs_diff=worst,
+                       floor_loss_diff=floor[0], floor_max_abs_diff=floor[1])
+            lims = {**MESH_STEP_TOL, "stats": MESH_STATS_TOL}
+            res["fails"] = [k for k, d in loss_d.items() if d > 1e-5
+                            + MESH_STEP_LOSS_RTOL * abs(ref[0][k])
+                            + 2 * floor[0][k]] + [
+                k for k, lim in lims.items()
+                if worst[k] > lim + 2 * floor[1][k]]
+        out[name] = res
+        del got
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _tree_checksum(tensors) -> float:
+    return float(sum(v.double().sum() for v in tensors))
+
+
+def _mesh_line(torch, rank: int) -> dict:
+    """14d on one rank: one auto and one disc lesson of ``LineGanTrainer``
+    at its published widths on 4 lines (2 a rank), against the same lessons
+    in one process on rank 0."""
+    import torch.distributed as dist
+
+    from affganwriting_torch.data.lines import LineCharset, LineDataset
+    from affganwriting_torch.parallel.mesh import make_mesh
+    from affganwriting_torch.train.line_trainer import LineGanTrainer
+
+    cs = LineCharset()
+    ds = LineDataset(cs, a_batch_size=2, width=512, seed=SEED)
+    first = next(ds.batches(batch_authors=2, epoch=0))
+
+    def lessons(mesh):
+        tr = LineGanTrainer(n_class=cs.n_class, seed=SEED, device="cuda",
+                            mesh=mesh)
+        state = tr.init_state(first)
+        got = {}
+        main_step = state.main_opt.step
+
+        def record_main(grads):
+            got.update({f"g_main/{k}": v.detach().clone()
+                        for k, v in grads.items() if v is not None})
+            main_step(grads)
+
+        def record_disc(opt, args, kwargs):
+            got.update({f"g_disc/{k}": p.grad.detach().clone()
+                        for k, p in state.disc.named_parameters()
+                        if p.grad is not None})
+
+        state.main_opt.step = record_main
+        state.disc_opt.register_step_pre_hook(record_disc)
+        metrics = {}
+        for it in (2, 3):
+            lesson = "+".join(tr.curriculum.get_lesson(it))
+            state, m = tr.train_iteration(state, it, first)
+            metrics.update({f"{lesson}/{k}": float(v) for k, v in m.items()})
+        trees = list(state.main_params().values()) + list(
+            state.disc.state_dict().values())
+        return metrics, got, _tree_checksum(trees)
+
+    mesh = make_mesh(2, 1, device="cuda:0")
+    metrics, grads, checksum = lessons(mesh)
+    out = {"metrics": metrics, "checksum": checksum}
+    if rank == 0:
+        want_m, want_g, _ = lessons(None)
+        out["metric_rel"] = {k: abs(metrics[k] - v) / max(abs(v), 1e-12)
+                             for k, v in want_m.items()}
+        floor = 1e-3 * max(float(v.norm()) for v in want_g.values())
+        rel = {k: float((grads[k] - v).norm())
+               / max(float(v.norm()), floor) for k, v in want_g.items()}
+        trees = {}
+        for tree in ("g_main/", "g_disc/"):
+            ks = [k for k in want_g if k.startswith(tree)]
+            trees[tree[:-1]] = (sum(float((grads[k] - want_g[k]).norm()) ** 2
+                                    for k in ks)
+                                / sum(float(want_g[k].norm()) ** 2
+                                      for k in ks)) ** 0.5
+        out["grad_rel_l2_trees"] = trees
+        out["grad_rel_l2_worst"] = sorted(rel.items(),
+                                          key=lambda kv: -kv[1])[:3]
+        out["fails"] = [k for k, v in out["metric_rel"].items()
+                        if v > MESH_LINE_RTOL] + [
+            k for k, v in trees.items() if v > MESH_LINE_GRAD_TOL] + [
+            k for k, v in rel.items() if v > MESH_LINE_LEAF_TOL]
+    dist.barrier()
+    return out
+
+
+def _mesh_rank(rank: int, world: int, init: str, card: str) -> None:
+    """One of the two ranks of phases 14b-d: gloo over CUDA tensors, both
+    ranks on the one card."""
+    import torch
+    import torch.distributed as dist
+
+    from affganwriting_torch.ops import cuda_build
+    from affganwriting_torch.parallel.multihost import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("gloo", device="cuda", init_method=init, rank=rank,
+                     world_size=world, timeout_s=300)
+    cuda_build.library()      # the parent's build
+    out = {"rank": rank}
+    for key, fn in (("serve", lambda: _mesh_serve(torch, rank, card)),
+                    ("step", lambda: _mesh_step(torch, rank)),
+                    ("line", lambda: _mesh_line(torch, rank))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    print("PHASE14 " + json.dumps(out), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh_world1(torch, card: str, tmp: str, counts, zero) -> dict:
+    """(a) NCCL at world 1: the sharded pipeline on a 1x1 mesh, bit-equal
+    to the unsharded call; then ``generate_word --mesh auto`` under
+    ``torch.distributed.run`` against ``--mesh none``."""
+    import os
+    import subprocess
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from affganwriting_torch.core.config import default_config
+    from affganwriting_torch.gen.inference import (
+        encode_labels,
+        make_generate_and_read_fn,
+        make_sharded_pipeline,
+    )
+    from affganwriting_torch.parallel.mesh import make_mesh
+    from affganwriting_torch.parallel.multihost import init_distributed
+
+    init_distributed("nccl", init_method=f"file://{tmp}/store14a", rank=0,
+                     world_size=1)
+    try:
+        cfg = default_config()
+        rng = np.random.default_rng(SEED)
+        style = rng.normal(size=(2, cfg.img_height, cfg.img_width,
+                                 cfg.style_stack)).astype(np.float32)[:1]
+        labels = encode_labels(MESH_WORDS, cfg.output_max_len)
+        want = make_generate_and_read_fn(cfg, seed=SEED)(style, labels)
+        run = make_sharded_pipeline(cfg, make_mesh(1, 1), seed=SEED)
+        zero()
+        got = run(style, labels)
+        torch.cuda.synchronize()
+        launches = counts()
+        if launches != (2, 1, 0):
+            raise AssertionError(f"the 1x1 sharded call launched {launches}")
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError("the 1x1 sharded call differs from the "
+                                 "unsharded one")
+        log(f"  1x1 mesh over NCCL, {len(MESH_WORDS)} words: images and ids "
+            f"bit-equal to the unsharded call; launches in_relu "
+            f"{launches[0]}, phase_head {launches[1]}")
+    finally:
+        dist.destroy_process_group()
+    env = {**os.environ, "PYTHONHASHSEED": "0"}
+    common = ["-m", "affganwriting_torch.cli.generate_word", "--corpus",
+              "ladder", "--max-writers", "1", "--seed", str(SEED)]
+    outs = {}
+    for mesh, pre in (("auto", ["-m", "torch.distributed.run", "--standalone",
+                                "--nproc-per-node", "1"]), ("none", [])):
+        outs[mesh] = os.path.join(tmp, f"gen_{mesh}")
+        proc = subprocess.run([sys.executable, *pre, *common, "--mesh", mesh,
+                               "--out", outs[mesh]], env=env,
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"generate_word --mesh {mesh}: "
+                                 f"{proc.stderr[-3000:]}")
+    files = sorted(os.listdir(outs["none"]))
+    if not files or sorted(os.listdir(outs["auto"])) != files or any(
+            Path(outs["auto"], f).read_bytes()
+            != Path(outs["none"], f).read_bytes() for f in files):
+        raise AssertionError("generate_word --mesh auto wrote other files "
+                             "than --mesh none")
+    log(f"  generate_word --mesh auto (torch.distributed.run, 1 process) "
+        f"and --mesh none wrote the same {len(files)} files, byte for byte")
+    return {"launches_sharded_call": list(launches),
+            "cli_files_equal": len(files), "card": card}
+
+
+def phase_mesh_two_ranks(torch, card: str) -> dict:
+    """(b)-(d) on two ranks sharing the card over gloo."""
+    import os
+
+    from affganwriting_torch.parallel.multihost import spawn
+
+    # one string-hash seed: the synthetic lines seed from hash(author), and
+    # every rank renders the global batch
+    outs = spawn("chip_smoke:_mesh_rank", 2, card, timeout_s=600,
+                 env={**os.environ, "PYTHONHASHSEED": "0"},
+                 cwd=str(Path(__file__).resolve().parent))
+    ranks = [json.loads(next(x for x in o.splitlines()
+                             if x.startswith("PHASE14 "))[8:]) for o in outs]
+    check_mesh_ranks(ranks, card)
+    return {"ranks": ranks}
+
+
+def check_mesh_ranks(ranks: list, card: str) -> None:
+    """Print and hold the two ranks' phase 14b-d results."""
+    for r in ranks:
+        s = r["serve"]
+        log(f"  [14b] rank {r['rank']}: {s['words'] // 2} of {s['words']} "
+            f"words, launches in_relu {s['launches'][0]}, phase_head "
+            f"{s['launches'][1]}; images max|err| {s['max_abs_err']:.3g} vs "
+            f"the unsharded call, token flips {s['token_flips']:.4f}; "
+            f"kernels vs plain {s['kernel_max_abs_err']}; strip rows "
+            f"{s['strip_rows']}; call {s['call_ms']:.3f} ms (gather "
+            f"included), its share {s['local_ms']:.3f} ms (CUDA events, "
+            f"median of 5) on {card}")
+    step, line = ranks[0]["step"], ranks[0]["line"]
+    for name in ("data2", "data1_model2"):
+        res = step[name]
+        log(f"  [14c] word step {name} (batch 8, f32, SGD): |loss diff| "
+            f"{ {k: f'{v:.2g}' for k, v in res['loss_diff'].items()} }, "
+            f"max|diff| { {k: f'{v:.2g}' for k, v in res['max_abs_diff'].items()} }; "
+            f"the one-process floor (rows reversed): |loss diff| "
+            f"{ {k: f'{v:.2g}' for k, v in res['floor_loss_diff'].items()} }, "
+            f"max|diff| { {k: f'{v:.2g}' for k, v in res['floor_max_abs_diff'].items()} }; "
+            f"one step {res['step_wall_s']:.3f} s wall on {card}")
+        if res["fails"]:
+            raise AssertionError(f"word step {name} on the mesh: {res['fails']}")
+        other = ranks[1]["step"][name]["checksum"]
+        if other != res["checksum"]:
+            raise AssertionError(f"word step {name}: the ranks' states "
+                                 f"differ ({res['checksum']} vs {other})")
+    log(f"  [14d] line lessons (auto, disc) at data=2: metrics rel "
+        f"{ {k: f'{v:.2g}' for k, v in line['metric_rel'].items()} }; "
+        f"gradients rel L2 by tree {line['grad_rel_l2_trees']}, worst leaves "
+        f"{line['grad_rel_l2_worst']}")
+    if line["fails"]:
+        raise AssertionError(f"line lessons on the mesh: {line['fails']}")
+    if ranks[1]["line"]["checksum"] != line["checksum"]:
+        raise AssertionError("line lessons: the ranks' trees differ")
+
+
+
 def main() -> int:
     import torch
 
@@ -3218,6 +3661,19 @@ def main() -> int:
     profilers = timed("13f", phase_profilers, torch, smi, counts, zero,
                       times)
     seconds["13"] = sum(seconds[k] for k in ("13a", "13b", "13cde", "13f"))
+    log("[14] multi-device: the mesh on torch.distributed")
+    tmp14 = tempfile.mkdtemp(prefix="phase14_", dir=root)
+    try:
+        log("[14a] NCCL at world 1: the 1x1 sharded pipeline, generate_word "
+            "--mesh auto")
+        mesh1 = timed("14a", phase_mesh_world1, torch, smi, tmp14, counts,
+                      zero)
+    finally:
+        shutil.rmtree(tmp14, ignore_errors=True)
+    log("[14b-d] two ranks sharing the card over gloo: the sharded "
+        "pipeline, the word step (data=2, 1x2), the line lessons")
+    mesh2 = timed("14bcd", phase_mesh_two_ranks, torch, smi)
+    seconds["14"] = seconds["14a"] + seconds["14bcd"]
     for k, key in (("in_relu", 0), ("phase_head", 1)):
         row = kernels[[r["name"] for r in kernels].index(k)]
         row["launches_profile_gen_upchain_call"] = \
@@ -3232,6 +3688,11 @@ def main() -> int:
         row["launches_line_path"] = line["launches"][key]
         row["launches_teacher_generate_call"] = \
             teacher["launches_generate_call"][key]
+        row["launches_sharded_call_world1"] = \
+            mesh1["launches_sharded_call"][key]
+        row["launches_sharded_call_per_rank"] = [
+            r["serve"]["launches"][key] for r in mesh2["ranks"]]
+        row["launches"] += mesh1["launches_sharded_call"][key]
         row["detail"].update({
             "launches_trainer_eval_batch":
                 runtime["eval_launches_per_batch"][key],
@@ -3255,6 +3716,7 @@ def main() -> int:
                     "line_train": line_train, "line_clis": line_clis,
                     "hwr_pretrain": hwr, "auto_pretrain": auto,
                     "line_pretrained": line_pre, "profilers": profilers,
+                    "mesh_world1": mesh1, "mesh_two_ranks": mesh2,
                     "phase_s": seconds,
                     "build_s": build_s}))
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,12 @@ framework here).
 """
 
 import json
+import os
 import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -67,14 +72,16 @@ def test_help(cli, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "auto"], "item 10"),
+    pytest.param(["--mesh", "auto"], "torch.distributed.run",
+                 id="flags0-item 10"),
     (["--trocr-ckpt", "ckpt"], "requires --recognizer trocr"),
     (["--recognizer", "trocr", "--trocr-preset", "tiny", "--trocr-ckpt",
       "ckpt"], "cannot load into --trocr-preset tiny"),
     (["--recognizer", "trocr", "--trocr-ckpt", "no/such/dir"],
      "not a readable local HF checkpoint directory"),
     (["train_line", "--xml-root", "no/such/xml"], "no/such/xml"),
-    (["train_line", "--mesh", "auto"], "item 10"),
+    pytest.param(["train_line", "--mesh", "2"], "torch.distributed.run",
+                 id="flags5-item 10"),
     (["train_line", "--pretrained-hwr", "no/such/hwr_final"],
      "no/such/hwr_final"),
     (["train_line", "--pretrained-ae", "no/such/ae_final"],
@@ -84,9 +91,10 @@ def test_help(cli, capsys):
     (["line_trainer", "pretrained_hwr"], "no/such/pretrained_hwr"),
     (["line_trainer", "pretrained_ae"], "no/such/pretrained_ae")])
 def test_unported_flags_name_their_roadmap_item(flags, item, tmp_path):
-    """The refusals: ``--mesh`` names the ROADMAP item it waits for (in
-    ``train_word``, ``generate_word`` and ``train_line``); the TrOCR flags
-    are refused by the JAX CLI's own rules.  ``train_line``'s IAM line
+    """The refusals: ``--mesh`` outside the launcher names it (in
+    ``train_word``, ``generate_word`` and ``train_line``; the cases keep
+    their ids from when ``--mesh`` waited for ROADMAP item 10); the TrOCR
+    flags are refused by the JAX CLI's own rules.  ``train_line``'s IAM line
     data and pretrained HWR and AE (flags, the config's
     ``trainer.encoder_weights``, or the trainer's own arguments) are
     ported: a path that does not exist reaches the IAM reader or the
@@ -245,3 +253,105 @@ def test_quality_report_and_evaluate(tmp_path, capsys, monkeypatch):
             assert set(res) == {"cer", "fid_provenance", key}
             assert res["cer"] == report["cer"]
             assert res[key] == pytest.approx(report[key], rel=1e-6)
+
+
+TESTS = Path(__file__).resolve().parent
+
+
+def _launch(n: int, cli: str, *argv: str) -> str:
+    """``cli`` on ``n`` CPU ranks under ``torch.distributed.run`` (a free
+    port of localhost), at the small configuration of
+    ``tests/torch_cli_ranks.py``; returns the output."""
+    env = {**os.environ, "PYTHONHASHSEED": "0",
+           "PYTHONPATH": f"{TESTS.parent}{os.pathsep}{TESTS}"}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), str(TESTS / "torch_cli_ranks.py"),
+           cli, *argv, "--device", "cpu"]
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
+    return proc.stdout + proc.stderr
+
+
+@pytest.fixture(scope="module")
+def mesh_run(tmp_path_factory):
+    """``train_word --mesh 2`` on two CPU ranks: one epoch of one step
+    (batch 2, a word a rank) and its evaluation."""
+    logdir = tmp_path_factory.mktemp("mesh") / "run"
+    out = _launch(2, "train_word", "--mesh", "2", "--style-encoder",
+                  "resnet18", "--batch-size", "2", "--max-writers", "2",
+                  "--epochs", "1", "--restart-rss-gb", "0", "--logdir",
+                  str(logdir), "--compute-dtype", "float32")
+    yield logdir, out
+    shutil.rmtree(logdir / "ckpt")      # two files of ~0.55 GB
+
+
+def test_train_word_on_two_cpu_ranks(mesh_run):
+    """One step on the mesh; rank 0 alone writes the metrics and one set
+    of checkpoint files, which hold one step."""
+    logdir, out = mesh_run
+    assert out.count("mesh: {'data': 2, 'model': 1}") == 1
+    lines = [json.loads(s) for s in open(logdir / "metrics.jsonl")]
+    assert [r["group"] for r in lines] == ["train", "eval"]
+    assert all(np.isfinite(r["l_total"]) for r in lines[:1])
+    assert sorted(os.listdir(logdir / "ckpt")) == [
+        "best", "best.config.json", "best.metric.json", "latest",
+        "latest.config.json"]
+    payload = torch.load(logdir / "ckpt" / "latest", weights_only=True)
+    assert payload["step"] == 1
+
+
+def test_generate_word_on_two_cpu_ranks(mesh_run, tmp_path):
+    """``generate_word --mesh 2`` (chunks of 7 words padded to 8, 4 a rank)
+    writes the files ``--mesh none`` writes, with the same pixels."""
+    logdir, _ = mesh_run
+    args = ["--ckpt", str(logdir / "ckpt"), "--ckpt-name", "latest",
+            "--corpus", "ladder", "--max-writers", "1", "--words-per-batch",
+            "7"]
+    _launch(2, "generate_word", "--mesh", "2", *args, "--out",
+            str(tmp_path / "mesh"))
+    # one process, under the same string-hash seed (the style stacks are
+    # synthetic words seeded from hash(word))
+    _launch(1, "generate_word", "--mesh", "none", *args, "--out",
+            str(tmp_path / "one"))
+    names = sorted(os.listdir(tmp_path / "one"))
+    assert len(names) == 17
+    assert sorted(os.listdir(tmp_path / "mesh")) == names
+    for name in names:
+        a, b = (_read_image(tmp_path / d / name) for d in ("one", "mesh"))
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1, name
+
+
+def _read_image(path) -> np.ndarray:
+    if str(path).endswith(".npy"):
+        return np.load(path)
+    from PIL import Image
+
+    return np.asarray(Image.open(path))
+
+
+def test_train_line_on_two_cpu_ranks(tmp_path):
+    """``train_line --mesh 2``: one iteration over 4 lines, 2 a rank; rank
+    0 writes the one checkpoint."""
+    out = _launch(2, "train_line", "--mesh", "2", "--max-gen-length", "32",
+                  "--width", "128", "--iterations", "1", "--val-every", "0",
+                  "--logdir", str(tmp_path / "line"))
+    ckpt = tmp_path / "line" / "ckpt"
+    try:
+        assert out.count("mesh: {'data': 2, 'model': 1}") == 1
+        assert sorted(os.listdir(ckpt)) == ["latest", "latest.config.json"]
+        payload = torch.load(ckpt / "latest", weights_only=True)
+        assert payload["iteration"] == 1
+    finally:
+        shutil.rmtree(ckpt)             # ~0.63 GB
+
+
+def test_dryrun_multichip_prints_its_ok_line(capsys):
+    """``entry.dryrun_multichip(4)``: 4 CPU ranks, data=2 x model=2, two
+    steps and a checkpoint round trip."""
+    from affganwriting_torch.entry import dryrun_multichip
+
+    line = dryrun_multichip(4, timeout_s=240)
+    assert line.startswith("dryrun_multichip ok on 4 ranks: mesh data=2 x "
+                           "model=2")
+    assert line in capsys.readouterr().out

@@ -36,8 +36,17 @@ torch.set_num_threads(2)   # tier-1 runs six xdist workers
 
 
 def test_ground_truth_and_corpus_read_as_the_jax_package_reads_them():
+    """The port reads its own copy of the data files (``data/assets``),
+    byte for byte the JAX package's, and parses them as it does."""
+    import filecmp
+    import os
+
     ours, theirs = iam.default_reference_paths(), j_paths()
-    assert ours == theirs
+    assert ours.keys() == theirs.keys()
+    for k in ours:
+        assert "affganwriting_torch" in ours[k] and ours[k] != theirs[k]
+        assert os.path.basename(ours[k]) == os.path.basename(theirs[k])
+        assert filecmp.cmp(ours[k], theirs[k], shallow=False), k
     for split in ("train_gt", "test_gt"):
         a, b = iam.parse_groundtruth(ours[split]), j_parse(theirs[split])
         assert list(a) == list(b)

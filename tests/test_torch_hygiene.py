@@ -1,5 +1,5 @@
-"""The port stands alone: no jax, flax or JAX-package import, and no silent
-CPU run."""
+"""The port stands alone: no jax, flax or JAX-package import, no data file
+read from the JAX package, and no silent CPU run."""
 
 import os
 import subprocess
@@ -73,6 +73,19 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
             fn(cfg)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn(cfg, device="cuda")
+    from types import SimpleNamespace
+
+    from affganwriting_torch.gen.inference import make_sharded_pipeline
+    from affganwriting_torch.parallel.mesh import make_mesh
+    from affganwriting_torch.parallel.multihost import init_distributed
+
+    on_card = SimpleNamespace(device=torch.device("cuda"), data=1, model=1,
+                              data_rank=0)
+    for run in (lambda: make_sharded_pipeline(small_torch_config(), on_card),
+                init_distributed, lambda: init_distributed(device="cuda"),
+                make_mesh, lambda: make_mesh(device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
     for run in (entry, lambda: entry(device="cuda"),
                 lambda: bench.main(["--batch", "8", "--quick"]),
                 lambda: bench.main(["--batch", "8", "--headline", "int8"]),
@@ -231,3 +244,42 @@ def test_kernel_wrappers_refuse_an_input_that_requires_grad():
     with torch.inference_mode():
         refuse_autograd("phase_head", x)
     refuse_autograd("in_relu", x.detach())
+
+
+_ALONE = """
+import sys
+from affganwriting_torch.data import iam, lines, parse_iam, wiki_text
+from affganwriting_torch.data.lines import LineCharset, TextData
+
+cs = LineCharset()
+paths = iam.default_reference_paths()
+gt = iam.parse_groundtruth(paths["train_gt"])
+corpus = iam.load_corpus(paths["corpus"])
+text = TextData(cs, max_len=20, seed=0)
+assert cs.n_class == 80 and len(gt) > 100 and len(corpus) > 1000, (
+    cs.n_class, len(gt), len(corpus))
+assert all(p.startswith(sys.argv[1]) for p in paths.values()), paths
+assert lines._REF_DATA.startswith(sys.argv[1]), lines._REF_DATA
+bad = [m for m in sys.modules if m.split(".")[0] == "affganwriting_tpu"]
+assert not bad, bad
+print("alone ok")
+"""
+
+
+def test_port_reads_its_own_data_files(tmp_path):
+    """``affganwriting_torch/`` copied alone, with no ``affganwriting_tpu/``
+    on disk beside it, loads the line charset, the text corpus, the word
+    ground truth and the word corpus from its own ``data/assets``."""
+    import shutil
+
+    shutil.copytree(ROOT / "affganwriting_torch",
+                    tmp_path / "affganwriting_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("AFFGAN_LINE_DATA", "AFFGAN_WORD_DATA")}
+    env["PYTHONPATH"] = str(tmp_path)
+    proc = subprocess.run([sys.executable, "-c", _ALONE, str(tmp_path)],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "alone ok" in proc.stdout
