@@ -1,12 +1,16 @@
 """Time each CUDA kernel beside its plain PyTorch version, one library call
 that computes the same function, and the card's bound for the work:
-``python -m affganwriting_torch.cli.bench_kernels [--batch 256]``.
+``python -m affganwriting_torch.cli.bench_kernels [--batch 256] [--iters
+20]``.
 
 The port of ``affganwriting_tpu/cli/bench_kernels.py``, at the decoder's
 shapes for 64x216 words, bf16: ``in_relu`` at (B, 256, 16, 54) and (B,
 128, 32, 108) NCHW, ``phase_head`` at (B, 256, 36, 112) for B = ``--batch``
 and 8.  Every time is ``tools/timing.py:cuda_ms`` (CUDA events, 20 calls a
-pair, the median of 20 pairs).  The bound is the larger of the bytes the
+pair, the median of ``--iters`` pairs; the JAX CLI's ``--iters`` is its
+count of timed calls).  The default batch is 256, where the JAX CLI's is
+1024: 256 is the serving request that ``PERF.md`` §6 times the kernels
+at (one writer's 256 words), and the kernel rows there are at that batch.  The bound is the larger of the bytes the
 function must move (each input read once, each output written once) over
 the card's memory rate and its operations over the peak rate for their
 type (``tools/timing.py:CARD_PEAKS``).  Prints one JSON line per shape;
@@ -20,11 +24,12 @@ import argparse
 import json
 
 
-def kernel_times(peaks, batch: int = 256, log=print) -> dict:
+def kernel_times(peaks, batch: int = 256, log=print, iters: int = 20) -> dict:
     """{"in_relu": row summed over its two shapes (with ``stages``),
     "phase_head": row at ``batch`` (with ``batch8``)}; each row has
     ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms``, ``bound_by``,
-    ``bytes`` and ``ops``.  ``peaks`` is ``card_peaks(name)[1]``."""
+    ``bytes`` and ``ops``.  ``peaks`` is ``card_peaks(name)[1]``; each time
+    is the median of ``iters`` event pairs."""
     import torch
     import torch.nn.functional as F
 
@@ -35,7 +40,10 @@ def kernel_times(peaks, batch: int = 256, log=print) -> dict:
         phase_head_plain,
         strip_rows,
     )
-    from affganwriting_torch.tools.timing import cuda_ms
+    from affganwriting_torch.tools import timing
+
+    def cuda_ms(fn):
+        return timing.cuda_ms(fn, iters=iters)
 
     mem_rate, bf16_rate, f32_rate = peaks
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -123,10 +131,18 @@ def json_lines(times: dict, device: str) -> list[dict]:
     return lines
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--batch", type=int, default=256)
-    args = p.parse_args(argv)
+    p.add_argument("--iters", type=int, default=20,
+                   help="CUDA event pairs a time is the median of")
+    return p
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    if args.iters < 1:
+        raise SystemExit("bench_kernels: --iters must be at least 1")
 
     from affganwriting_torch.gen.inference import resolve_device
     from affganwriting_torch.ops import cuda_build
@@ -137,7 +153,8 @@ def main(argv=None):
 
     cuda_build.build()
     times = kernel_times(card_peaks(torch.cuda.get_device_name(0))[1],
-                         args.batch, log=lambda msg: None)
+                         args.batch, log=lambda msg: None,
+                         iters=args.iters)
     lines = json_lines(times, nvidia_smi_line())
     for line in lines:
         print(json.dumps(line), flush=True)

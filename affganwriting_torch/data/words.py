@@ -171,6 +171,20 @@ class WordStyleDataset:
             return np.zeros((cfg.img_height, cfg.img_width), np.float32)
         return preprocess_word_image(img, cfg.img_height, cfg.img_width)
 
+    def style_stack(self, writer: str, rng: np.random.Generator
+                    ) -> np.ndarray:
+        """(1, H, W, style_stack) float32: the writer's word images
+        shuffled by ``rng`` and repeated to fill the stack, the serving
+        tools' style input (the JAX package's ``scripts/ab_*.py``)."""
+        entries = list(self.by_writer[writer])
+        rng.shuffle(entries)
+        n = self.config.style_stack
+        while len(entries) < n:
+            entries = entries + entries[: n - len(entries)]
+        label = self.label_map[writer]
+        return np.stack([self._read(e, label) for e in entries[:n]],
+                        axis=-1)[None].astype(np.float32)
+
     def sample(self, writer: str, rng: np.random.Generator) -> dict:
         cfg = self.config
         extra = cfg.style_stack + 1

@@ -68,11 +68,12 @@ def _load(module: nn.Module, state, seed: int, device) -> nn.Module:
 
 
 def build_generator(config: WordGanConfig, device=None, *, state=None,
-                    seed: int = 0) -> Generator:
+                    seed: int = 0, subpixel: bool = True) -> Generator:
     """G on ``device`` (``None``: the card) with ``state`` (a state dict,
-    e.g. from ``utils/from_flax``) or random weights from ``seed``."""
+    e.g. from ``utils/from_flax``) or random weights from ``seed``;
+    ``subpixel=False`` builds the exact decoder on the same parameters."""
     dev = resolve_device(device)
-    return _load(Generator(config), state, seed, dev)
+    return _load(Generator(config, subpixel=subpixel), state, seed, dev)
 
 
 def new_recognizer(config: WordGanConfig, rec_dropout: float = 0.5):

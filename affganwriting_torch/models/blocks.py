@@ -9,9 +9,11 @@ arithmetic rounds where the reference rounds.  ``BatchNorm`` follows the
 module's train/eval mode as flax's ``use_running_average=not train`` does.
 ``Conv2dBlock``, ``ActFirstResBlock`` and ``avg_pool_3x3_s2_refpad`` build
 the discriminator and writer classifier, ``Conv2dBlock`` with instance
-norm the ``cnn`` style encoder; ``ResBlock`` and ``LinearBlock`` are not
-ported (nothing ported uses them).  ``get_group_size``, ``GroupNorm`` and
-``Conv1d`` serve the line-generation models.
+norm the ``cnn`` style encoder.  ``ResBlock`` and ``LinearBlock`` have no
+user in either package (the JAX decoder's residual blocks are AdaIN's, in
+``models/decoder.py``): ``tests/test_torch_blocks.py`` holds them, and
+``activation_fn``, against the JAX modules.  ``get_group_size``,
+``GroupNorm`` and ``Conv1d`` serve the line-generation models.
 """
 
 from __future__ import annotations
@@ -85,9 +87,25 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
     return torch.where(keep, x / keep_prob, x.new_zeros(()))
 
 
+def with_bias(op, bias: torch.Tensor | None, dt: torch.dtype,
+              channel_dim: int = 1) -> torch.Tensor:
+    """``op(bias)`` for a product that takes its bias, rounding as flax's
+    ``nn.Conv`` and ``nn.Dense`` do: below f32 they round the product to
+    ``dt`` and then add the bias rounded to ``dt``, a second rounding.
+    A bias fused into the product rounds once, so below f32 the bias is
+    added to ``op(None)`` here; in f32 it stays fused."""
+    if bias is None or dt == torch.float32:
+        return op(None if bias is None else bias.to(dt))
+    y = op(None)
+    shape = [1] * y.dim()
+    shape[channel_dim] = -1
+    return y + bias.to(dt).view(shape)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in ``compute_dtype`` on f32 parameters;
-    ``kernel``, ``stride`` and ``padding`` take an int or an (h, w) pair."""
+    ``kernel``, ``stride`` and ``padding`` take an int or an (h, w) pair.
+    The bias is added as ``with_bias`` says."""
 
     def __init__(self, cin: int, cout: int, kernel, *, stride=1, padding=0,
                  bias: bool = True, groups: int = 1,
@@ -98,14 +116,16 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        b = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
-                        self.padding, groups=self.groups)
+        x, w = x.to(dt), self.weight.to(dt)
+        return with_bias(lambda b: F.conv2d(x, w, b, self.stride,
+                                            self.padding, groups=self.groups),
+                         self.bias, dt)
 
 
 class Conv1d(nn.Conv1d):
     """``nn.Conv1d`` over (B, C, T) computing in ``compute_dtype`` on f32
-    parameters (flax ``nn.Conv`` with a 1-D kernel)."""
+    parameters (flax ``nn.Conv`` with a 1-D kernel); the bias as
+    ``with_bias`` says."""
 
     def __init__(self, cin: int, cout: int, kernel: int, *, padding=0,
                  dilation: int = 1, compute_dtype: torch.dtype = torch.float32):
@@ -115,8 +135,10 @@ class Conv1d(nn.Conv1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        self.stride, self.padding, self.dilation)
+        x, w = x.to(dt), self.weight.to(dt)
+        return with_bias(lambda b: F.conv1d(x, w, b, self.stride,
+                                            self.padding, self.dilation),
+                         self.bias, dt)
 
 
 def get_group_size(channels: int) -> int:
@@ -157,7 +179,8 @@ class GroupNorm(nn.Module):
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` computing in ``compute_dtype`` on f32 parameters.
+    """``nn.Linear`` computing in ``compute_dtype`` on f32 parameters, the
+    bias added as ``with_bias`` says.
     Placed on a mesh's model axis (``parallel/mesh.py``: ``tp`` set, the
     weight and bias holding this rank's block of the output features) it
     gathers the full output over the model group, and sums its input's
@@ -171,10 +194,10 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        b = None if self.bias is None else self.bias.to(dt)
         if self.tp is not None:
             x = model_input(x, self.tp.group)
-        y = F.linear(x.to(dt), self.weight.to(dt), b)
+        x, w = x.to(dt), self.weight.to(dt)
+        y = with_bias(lambda b: F.linear(x, w, b), self.bias, dt, -1)
         if self.tp is not None:
             y = gather_cat(y, self.tp.group, self.tp.rank, self.tp.size, -1)
         return y
@@ -255,20 +278,38 @@ def frozen_stats(module: nn.Module):
             bn.update_stats = flag
 
 
+# flax's leaky_relu(x, 0.2) is where(x >= 0, x, 0.2 * x) with a weak-typed
+# slope: 0.2 rounded to x's dtype (0.2001953125 in bf16)
+_LEAK = {dt: torch.tensor(0.2, dtype=dt).item()
+         for dt in (torch.float64, torch.float32, torch.bfloat16,
+                    torch.float16)}
+
+
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, 0.2)
+    """flax's ``leaky_relu(x, 0.2)``, its slope in x's dtype (``_LEAK``)."""
+    return F.leaky_relu(x, _LEAK[x.dtype])
 
 
-_ACTIVATIONS = {"none": None, "lrelu": leaky_relu, "relu": torch.relu}
-_NORMS = {"none": None, "in": instance_norm}
+_ACTIVATIONS = {"none": None, "lrelu": leaky_relu, "relu": torch.relu,
+                "tanh": torch.tanh}
+
+
+def activation_fn(name: str):
+    """The activation called ``name`` ("relu", "lrelu" with slope 0.2,
+    "tanh"), or None for "none"; raises on any other name."""
+    if name not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation {name!r}")
+    return _ACTIVATIONS[name]
 
 
 class Conv2dBlock(nn.Module):
     """pad -> conv -> norm -> activation, or with ``activation_first`` the
     activation before the pad; the flax conv is ``Conv_0``.  ``kernel`` and
-    ``stride`` take an int or an (h, w) pair.  Norms: "none" and "in"
-    (``ops/norms.instance_norm``); the JAX block's "bn" and "group" wait
-    for their line-stack users."""
+    ``stride`` take an int or an (h, w) pair.  Norms: "none", "in"
+    (``ops/norms.instance_norm``), "bn" (``BatchNorm_0``, f32, following
+    the module's train/eval mode) and "group" (``GroupNorm_0`` with
+    ``get_group_size(cout)`` groups), the two last cast back to the conv's
+    dtype as in the JAX block."""
 
     def __init__(self, cin: int, cout: int, kernel, stride=1,
                  padding: int = 0, *, norm: str = "none",
@@ -277,18 +318,31 @@ class Conv2dBlock(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.padding, self.pad_type = padding, pad_type
-        self.norm = _NORMS[norm]
-        self.act = _ACTIVATIONS[activation]
+        self.act = activation_fn(activation)
         self.activation_first = activation_first
         self.Conv_0 = Conv2d(cin, cout, kernel, stride=stride, bias=bias,
                              compute_dtype=dtype)
+        self.norm = norm
+        if norm == "bn":
+            self.BatchNorm_0 = BatchNorm(cout)
+        elif norm == "group":
+            self.GroupNorm_0 = GroupNorm(get_group_size(cout), cout)
+        elif norm not in ("none", "in"):
+            raise ValueError(f"unknown norm {norm!r}")
+
+    def _normed(self, x):
+        if self.norm == "in":
+            return instance_norm(x)
+        if self.norm == "bn":
+            return self.BatchNorm_0(x).to(x.dtype)
+        if self.norm == "group":
+            return self.GroupNorm_0(x).to(x.dtype)
+        return x
 
     def forward(self, x):
         if self.activation_first and self.act is not None:
             x = self.act(x)
-        x = self.Conv_0(pad2d(x, self.padding, self.pad_type))
-        if self.norm is not None:
-            x = self.norm(x)
+        x = self._normed(self.Conv_0(pad2d(x, self.padding, self.pad_type)))
         if not self.activation_first and self.act is not None:
             x = self.act(x)
         return x
@@ -318,6 +372,46 @@ class ActFirstResBlock(nn.Module):
         if hasattr(self, "Conv2dBlock_2"):
             x = self.Conv2dBlock_2(x)
         return x + dx
+
+
+class ResBlock(nn.Module):
+    """Two 3x3 ``Conv2dBlock``s of ``dim`` channels, padded by
+    ``pad_type``, with ``norm``, the first followed by ``activation``, and
+    an identity skip: the JAX package's ``ResBlock``."""
+
+    def __init__(self, dim: int, norm: str = "in", activation: str = "relu",
+                 pad_type: str = "zero", dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.Conv2dBlock_0 = Conv2dBlock(dim, dim, 3, 1, 1, norm=norm,
+                                         activation=activation,
+                                         pad_type=pad_type, dtype=dtype)
+        self.Conv2dBlock_1 = Conv2dBlock(dim, dim, 3, 1, 1, norm=norm,
+                                         activation="none",
+                                         pad_type=pad_type, dtype=dtype)
+
+    def forward(self, x):
+        return x + self.Conv2dBlock_1(self.Conv2dBlock_0(x))
+
+
+class LinearBlock(nn.Module):
+    """Dense (``Dense_0``) -> BatchNorm when ``norm`` is "bn"
+    (``BatchNorm_0``, f32, cast back) -> ``activation``: the JAX package's
+    ``LinearBlock``, which applies no other norm."""
+
+    def __init__(self, din: int, features: int, norm: str = "none",
+                 activation: str = "relu",
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.Dense_0 = Linear(din, features, compute_dtype=dtype)
+        if norm == "bn":
+            self.BatchNorm_0 = BatchNorm(features)
+        self.act = activation_fn(activation)
+
+    def forward(self, x):
+        x = self.Dense_0(x)
+        if hasattr(self, "BatchNorm_0"):
+            x = self.BatchNorm_0(x).to(x.dtype)
+        return x if self.act is None else self.act(x)
 
 
 def avg_pool_3x3_s2_refpad(x: torch.Tensor) -> torch.Tensor:

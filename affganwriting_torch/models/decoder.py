@@ -38,7 +38,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from affganwriting_torch.models.aff import AdaINFusion
-from affganwriting_torch.models.blocks import Conv2d, depth_to_space, pad2d
+from affganwriting_torch.models.blocks import (
+    Conv2d,
+    depth_to_space,
+    pad2d,
+    with_bias,
+)
 from affganwriting_torch.ops.in_relu_cuda import in_relu
 from affganwriting_torch.ops.norms import instance_norm
 from affganwriting_torch.ops.phase_head_cuda import phase_head
@@ -165,17 +170,18 @@ class UpsampleConv(nn.Module):
         dt = self.dtype
         if not self.subpixel:
             up = F.interpolate(x, scale_factor=2, mode="nearest")
-            up = pad2d(up, 2, "reflect")
-            return F.conv2d(up.to(dt), self.weight.to(dt), self.bias.to(dt))
+            up, w = pad2d(up, 2, "reflect").to(dt), self.weight.to(dt)
+            return with_bias(lambda b: F.conv2d(up, w, b), self.bias, dt)
         w4 = fold_upsample_kernel(self.weight)
-        bias4 = self.bias.repeat(4).to(dt)
+        bias4 = self.bias.repeat(4)
         if self.quant_mode == "calib":
             record_amax(self, x)
         if self.quant_mode in ("dynamic", "static"):
             y = int8_conv_site(self, self.quant_mode, x, w4, None, dt, pad=1)
-            y = y + bias4.view(1, -1, 1, 1)
+            y = y + bias4.to(dt).view(1, -1, 1, 1)
         else:
-            y = F.conv2d(pad2d(x, 1, "reflect").to(dt), w4.to(dt), bias4)
+            xp, w = pad2d(x, 1, "reflect").to(dt), w4.to(dt)
+            y = with_bias(lambda b: F.conv2d(xp, w, b), bias4, dt)
         return y if self.emit_phase else depth_to_space(y)
 
 

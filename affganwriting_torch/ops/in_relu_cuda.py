@@ -67,3 +67,13 @@ def in_relu(x: torch.Tensor, eps: float = 1e-5,
 
 
 in_relu.launches = 0
+
+
+def instance_norm_relu(x: torch.Tensor, eps: float = 1e-5,
+                       relu: bool = True) -> torch.Tensor:
+    """``in_relu`` with the JAX package's signature and layout
+    (``ops/in_relu_pallas.py:instance_norm_relu``): x (N, H, W, C) ->
+    (N, H, W, C).  The kernel takes NCHW planes, so x is transposed into
+    them and the result back."""
+    y = in_relu(x.permute(0, 3, 1, 2).contiguous(), eps, relu)
+    return y.permute(0, 2, 3, 1)

@@ -202,3 +202,12 @@ def phase_head(xp: torch.Tensor, kc: torch.Tensor,
 
 phase_head.launches = 0          # f32 route, CUDA cores
 phase_head.launches_wgmma = 0    # bf16 route, wgmma + TMA
+
+
+def phase_head_fold(xp: torch.Tensor, kc: torch.Tensor,
+                    bias4: torch.Tensor) -> torch.Tensor:
+    """``phase_head`` with the JAX package's signature and layout
+    (``ops/phase_head_pallas.py:phase_head_fold``): the reflect-padded
+    phase input xp (B, h+4, w+4, 4C), kc (4C, 100), bias4 (4,) -> the
+    tanh'd images (B, 2h, 2w).  xp is transposed into the kernels' NCHW."""
+    return phase_head(xp.permute(0, 3, 1, 2).contiguous(), kc, bias4)[:, 0]

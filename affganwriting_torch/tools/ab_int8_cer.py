@@ -79,15 +79,7 @@ def main(argv=None) -> dict:
     labels = encode_labels(words, cfg.output_max_len)
 
     rng = np.random.default_rng(args.seed)
-    stacks = []
-    for wid in list(gt.keys())[: args.writers]:
-        entries = gt[wid][:]
-        rng.shuffle(entries)
-        while len(entries) < cfg.style_stack:
-            entries = entries + entries[: cfg.style_stack - len(entries)]
-        stacks.append(np.stack(
-            [ds._read(e, label_map[wid]) for e in entries[: cfg.style_stack]],
-            axis=-1)[None].astype(np.float32))
+    stacks = [ds.style_stack(w, rng) for w in list(gt)[: args.writers]]
 
     # serving calibrates once, on the first writer's batch, then styles vary
     run.calibrate(stacks[0], labels)

@@ -10,6 +10,11 @@ caller hands the flax trees over as nested dicts of numpy arrays
   them in forward, as the JAX package does.
 - ``scale``/``bias`` -> ``weight``/``bias``; ``embedding`` -> ``weight``;
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
+  The port's modules carry flax's submodule names, so these rules convert
+  the blocks of ``models/blocks.py`` as they stand: ``Conv2dBlock_k/
+  Conv_0``, ``BatchNorm_0`` and ``GroupNorm_0`` of ``Conv2dBlock``,
+  ``ActFirstResBlock`` and ``ResBlock``, ``Dense_0`` and ``BatchNorm_0``
+  of ``LinearBlock``.
 - A depthwise kernel (k, k, 1, C) -> (C, 1, k, k), the patch embedding
   (14, 14, 50, D) -> (D, 50, 14, 14): the conv rule.  ``pos_embed`` keeps
   its (1, N, D); LayerNorm's ``scale`` is its ``weight``.

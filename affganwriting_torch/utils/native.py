@@ -1,10 +1,13 @@
 """ctypes loader of the native word-image preprocessing (``native/
 preprocess.cpp`` at the root of the checkout).
 
-The port's copy of the parts of ``affganwriting_tpu/utils/native.py`` that
-``data/words.py`` and ``data/line_augment.py`` use: the word preprocessing,
-the batched Otsu foreground masks and the batched mesh warp.  Build once
-with
+The port of ``affganwriting_tpu/utils/native.py``: the word preprocessing,
+the batched Otsu foreground masks and the batched mesh warp, which
+``data/words.py`` and ``data/line_augment.py`` use, and the elastic and
+affine warps of one image (``elastic_native``, ``affine_native``), which
+no module of either package calls: ``tests/test_torch_native.py`` holds
+them against the JAX package's wrappers and ``data/augment.py``.  Build
+once with
 
     python -m affganwriting_torch.utils.native build
 
@@ -64,7 +67,14 @@ def load():
     lib.otsu_fg_mask_batch.argtypes = [f32p, i32, i32, i32, f32p]
     lib.grid_warp_batch.argtypes = [f32p, i32, i32, i32, f32p, f32p, i32,
                                     i32, ctypes.c_float, f32p]
-    lib.otsu_fg_mask_batch.restype = lib.grid_warp_batch.restype = None
+    lib.elastic_warp.argtypes = [f32p, f32p, i32, i32, f32p, f32p,
+                                 ctypes.c_float, ctypes.c_float,
+                                 ctypes.c_float]
+    lib.affine_warp.argtypes = [f32p, f32p, i32, i32, ctypes.c_float,
+                                ctypes.c_float, ctypes.c_float]
+    for fn in (lib.otsu_fg_mask_batch, lib.grid_warp_batch,
+               lib.elastic_warp, lib.affine_warp):
+        fn.restype = None
     _lib = lib
     return lib
 
@@ -73,13 +83,18 @@ def available() -> bool:
     return load() is not None
 
 
-def preprocess_words_native(images: np.ndarray, out_h: int = 64,
-                            out_w: int = 216) -> np.ndarray:
-    """(N, H, W) uint8 -> (N, out_h, out_w) float32 in [-1, 1]."""
+def _built():
     lib = load()
     if lib is None:
         raise RuntimeError("the native library is not built: run python -m "
                            "affganwriting_torch.utils.native build")
+    return lib
+
+
+def preprocess_words_native(images: np.ndarray, out_h: int = 64,
+                            out_w: int = 216) -> np.ndarray:
+    """(N, H, W) uint8 -> (N, out_h, out_w) float32 in [-1, 1]."""
+    lib = _built()
     images = np.ascontiguousarray(images, np.uint8)
     n, h, w = images.shape
     out = np.empty((n, out_h, out_w), np.float32)
@@ -91,6 +106,37 @@ def preprocess_words_native(images: np.ndarray, out_h: int = 64,
 
 def _f32p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def elastic_native(img: np.ndarray, rng: np.random.Generator,
+                   alpha: float = 1750.0, sigma: float = 45.0) -> np.ndarray:
+    """Elastic warp of one (H, W) image: displacement fields dx, then dy,
+    drawn uniform in [-1, 1] from ``rng`` (the JAX wrapper's order), each
+    Gaussian-blurred by ``sigma`` and scaled by ``alpha``; bilinear
+    resampling, the image's minimum outside it."""
+    lib = _built()
+    img = np.ascontiguousarray(img, np.float32)
+    h, w = img.shape
+    dx = np.ascontiguousarray(rng.uniform(-1, 1, size=(h, w)), np.float32)
+    dy = np.ascontiguousarray(rng.uniform(-1, 1, size=(h, w)), np.float32)
+    out = np.empty_like(img)
+    lib.elastic_warp(_f32p(img), _f32p(out), h, w, _f32p(dx), _f32p(dy),
+                     alpha, sigma, float(img.min()))
+    return out
+
+
+def affine_native(img: np.ndarray, degrees: float = 0.0,
+                  shear: float = 0.0) -> np.ndarray:
+    """Rotation by ``degrees`` and horizontal shear by ``shear`` of one
+    (H, W) image about its centre; bilinear resampling, the image's minimum
+    outside it (``data/augment.py``'s ``rotate`` and ``shear``)."""
+    lib = _built()
+    img = np.ascontiguousarray(img, np.float32)
+    h, w = img.shape
+    out = np.empty_like(img)
+    lib.affine_warp(_f32p(img), _f32p(out), h, w, degrees, shear,
+                    float(img.min()))
+    return out
 
 
 def otsu_fg_mask_native(imgs: np.ndarray) -> np.ndarray | None:

@@ -11,12 +11,20 @@ port lacks (``num_batches_tracked``, the classifier heads) and widens the
 first conv.  The 1x1 reducers have no torchvision counterpart: load a
 result with ``load_state_dict(..., strict=False)`` over an initialized
 module, and only the reducers stay missing.  Nothing is downloaded.
+
+The JAX package's flax-layout importers are here too, on numpy arrays
+(``conv_w``, ``linear_w``, ``resnet50_to_flax``, ``inception_v3_to_flax``,
+``merge_pretrained``): they write a torchvision checkpoint into the JAX
+package's parameter trees, for handing weights to the reference.  The port
+itself loads the state dicts above; ``tests/test_torch_style_encoders.py``
+holds both routes to the same tensors.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Sequence
 
+import numpy as np
 import torch
 
 from affganwriting_torch.models.style_encoders.efficientnet import V2L_STAGES
@@ -111,3 +119,98 @@ def efficientnet_v2_l_state_dict(sd, in_channels: int = 50,
                 conv(f"{name}.{port}", f"{p}.{idx}.0")
                 bn(f"{name}.{port}_bn", f"{p}.{idx}.1")
     return out
+
+
+# ---- the JAX package's flax layouts (numpy) --------------------------------
+
+
+def conv_w(t: np.ndarray) -> np.ndarray:
+    """torch conv weight (O, I, KH, KW) -> flax kernel (KH, KW, I, O)."""
+    return np.transpose(t, (2, 3, 1, 0))
+
+
+def linear_w(t: np.ndarray) -> np.ndarray:
+    """torch linear weight (O, I) -> flax kernel (I, O)."""
+    return np.transpose(t, (1, 0))
+
+
+def _flax_bn(sd, prefix):
+    return ({"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]},
+            {"mean": sd[f"{prefix}.running_mean"],
+             "var": sd[f"{prefix}.running_var"]})
+
+
+def resnet50_to_flax(sd: dict[str, np.ndarray], in_channels: int = 50
+                     ) -> tuple[dict, dict]:
+    """torchvision ``resnet50`` (numpy) -> (params, batch_stats) of the JAX
+    package's ``_ResNetStyleEncoder``; its 1x1 reducers have no torchvision
+    counterpart and are left out (``merge_pretrained`` keeps their
+    init)."""
+    first = expand_first_conv(torch.as_tensor(sd["conv1.weight"]),
+                              in_channels).numpy()
+    params: dict[str, Any] = {"conv1": {"kernel": conv_w(first)}}
+    stats: dict[str, Any] = {}
+    params["bn1"], stats["bn1"] = _flax_bn(sd, "bn1")
+    for li, n in enumerate((3, 4, 6, 3), start=1):
+        for bi in range(n):
+            tv, p, st = f"layer{li}.{bi}", {}, {}
+            for ci in (1, 2, 3):
+                p[f"conv{ci}"] = {"kernel": conv_w(sd[f"{tv}.conv{ci}.weight"])}
+                p[f"bn{ci}"], st[f"bn{ci}"] = _flax_bn(sd, f"{tv}.bn{ci}")
+            if f"{tv}.downsample.0.weight" in sd:
+                p["down_conv"] = {
+                    "kernel": conv_w(sd[f"{tv}.downsample.0.weight"])}
+                p["down_bn"], st["down_bn"] = _flax_bn(sd,
+                                                       f"{tv}.downsample.1")
+            params[f"layer{li}_{bi}"], stats[f"layer{li}_{bi}"] = p, st
+    return params, stats
+
+
+def inception_v3_to_flax(sd: dict[str, np.ndarray]) -> tuple[dict, dict]:
+    """torchvision ``inception_v3`` (numpy) -> (params, batch_stats) of the
+    JAX package's ``InceptionV3Pool3``: module ``a.b`` -> ``a/b/conv`` and
+    ``a/b/bn``; ``AuxLogits.*`` and ``fc.*`` are dropped."""
+    params: dict[str, Any] = {}
+    stats: dict[str, Any] = {}
+
+    def put(tree, path, leaf):
+        for p in path[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[path[-1]] = leaf
+
+    for key, value in sd.items():
+        if key.startswith(("AuxLogits", "fc.")):
+            continue
+        *mod, kind, leaf = key.split(".")
+        if kind == "conv":
+            put(params, mod + ["conv"], {"kernel": conv_w(value)})
+        elif kind == "bn" and leaf in ("weight", "bias"):
+            put(params, mod + ["bn", {"weight": "scale"}.get(leaf, leaf)],
+                value)
+        elif kind == "bn" and leaf in ("running_mean", "running_var"):
+            put(stats, mod + ["bn", leaf[len("running_"):]], value)
+    return params, stats
+
+
+def merge_pretrained(init_variables: dict, params: dict, stats: dict) -> dict:
+    """Overlay imported (params, batch_stats) trees on initialized flax
+    variables, keeping the entries with no torchvision counterpart
+    (reducers, heads); raises where an imported leaf's shape differs from
+    the initialized one."""
+
+    def overlay(dst, src, path=()):
+        out = dict(dst)
+        for k, v in src.items():
+            if isinstance(v, dict) and isinstance(out.get(k), dict):
+                out[k] = overlay(out[k], v, path + (k,))
+            else:
+                if k in out and np.shape(out[k]) != np.shape(v):
+                    raise ValueError(
+                        f"{'/'.join(path + (k,))}: imported "
+                        f"{np.shape(v)}, initialized {np.shape(out[k])}")
+                out[k] = v
+        return out
+
+    return {"params": overlay(init_variables["params"], params),
+            "batch_stats": overlay(init_variables.get("batch_stats", {}),
+                                   stats)}

@@ -160,6 +160,18 @@ non-zero before printing any result.  Phases, each fatal on failure:
    auto and a disc lesson of ``LineGanTrainer`` at its published widths,
    2 lines a rank, against one process's (``MESH_LINE_*``).  Two processes
    time-slicing one card say nothing about scaling.
+15. batch invariance at ``default_config()``: (a) ``in_relu`` at its two
+   shapes and ``phase_head`` on xp (256, 256, 36, 112), f32 and bf16, on
+   rows 0-63 alone and inside batch 256, which must be bit-equal
+   (``strip_rows`` gives the bf16 route R = 16 and 32 there; both printed);
+   (b) a reading, not a gate: the bf16 request of 1 writer x words 0-63
+   alone and inside the 256-word request under each ``cudnn.benchmark`` x
+   ``cudnn.deterministic`` setting (restored after), the max|diff| of rows
+   0-63 at every stage (style encoder, text encoder, mix, res blocks,
+   upsample convs and their IN + ReLU, head, R's trunk, BiGRU, logits), the
+   first that differs and the ids that flip; (c) ``cli/bench_kernels
+   --iters 5``; (d) ``tools/ab_subpixel_quality`` on phase 7's ``best``
+   (2 + 1 epochs: not trained), so phase 7's logdir now lives until here.
 
 Each phase prints its seconds.  The last lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
@@ -3488,6 +3500,190 @@ def check_mesh_ranks(ranks: list, card: str) -> None:
 
 
 
+# ---- phase 15: batch invariance ------------------------------------------
+
+INVARIANCE_WORDS = WORDS * 32        # 1 writer x 256 words; rows 0-63 alone
+
+
+def _kernel_rows_equal(torch, fn, x, rows: int = 64):
+    """``fn`` on all of x and on its first ``rows`` rows alone: (bit-equal,
+    max|diff|) of those rows."""
+    full = fn(x)
+    part = fn(x[:rows].contiguous())
+    torch.cuda.synchronize()
+    diff = float((full[:rows].float() - part.float()).abs().max())
+    return bool(torch.equal(full[:rows], part)), diff
+
+
+def batch_invariance_kernels(torch) -> dict:
+    """(a) Each kernel on the same rows at batch 64 and at batch 256, f32
+    and bf16: ``in_relu`` at its two main-path shapes, ``phase_head`` on
+    xp (256, 256, 36, 112), where ``strip_rows`` gives the bf16 route
+    another strip height at each batch.  Rows 0-63 must be bit-equal: the
+    arithmetic of an output may depend on neither the grid nor R."""
+    from affganwriting_torch.ops.in_relu_cuda import in_relu
+    from affganwriting_torch.ops.phase_head_cuda import phase_head, strip_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res, bad = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for shape in ((256, 256, 16, 54), (256, 128, 32, 108)):
+            x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1) \
+                .to(dtype)
+            equal, diff = _kernel_rows_equal(torch, in_relu, x)
+            key = f"in_relu {tag} {shape[1:]}"
+            res[key] = {"bit_equal": equal, "max_abs_diff": diff}
+            log(f"  [15a] {key}: rows 0-63 at batch 64 vs 256 "
+                f"{'bit-equal' if equal else f'DIFFER by {diff:.3g}'}")
+            bad += [] if equal else [key]
+        xp = torch.relu(torch.randn((256, 256, 36, 112), generator=gen,
+                                    device="cuda")).to(dtype)
+        kc = (torch.randn((256, 100), generator=gen, device="cuda")
+              / (49 * 64) ** 0.5).to(dtype)
+        bias4 = torch.randn(4, generator=gen, device="cuda") * 0.1
+        equal, diff = _kernel_rows_equal(
+            torch, lambda t: phase_head(t, kc, bias4), xp)
+        key = f"phase_head {tag} (256, 36, 112)"
+        rows = ({"R_batch64": strip_rows(64, 32, sms),
+                 "R_batch256": strip_rows(256, 32, sms)}
+                if dtype == torch.bfloat16 else {})
+        res[key] = {"bit_equal": equal, "max_abs_diff": diff, **rows}
+        log(f"  [15a] {key}: rows 0-63 at batch 64 vs 256 "
+            f"{'bit-equal' if equal else f'DIFFER by {diff:.3g}'}"
+            + (f"; strip height R = {rows['R_batch64']} at batch 64, "
+               f"{rows['R_batch256']} at batch 256 ({sms} SMs)"
+               if rows else " (CUDA-core route, 16x16 tiles)"))
+        bad += [] if equal else [key]
+    if bad:
+        raise AssertionError(f"batch-dependent kernel results: {bad}")
+    return res
+
+
+def _stage_outputs(torch, run, style, labels) -> dict:
+    """Every stage's output of one request, by forward hooks: G's style
+    encoder, text encoder, mix, res blocks, upsample convs and their
+    IN + ReLU (the next module's input), head; R's trunk, BiGRU outputs
+    (not its final states, which are layer-major), logits; the greedy
+    ids."""
+    gen, rec = run.gen, run.rec
+    out, hooks = {}, []
+
+    def keep(name, what):
+        def hook(module, args, result):
+            out[name] = (args[0] if what == "in" else
+                         result[0] if what == "first" else result)
+        return hook
+
+    stages = [("G.encode_style", gen.enc_image, "out"),
+              ("text encoder", gen.text_encoder, "out"),
+              ("mix", gen.linear_mix, "out"),
+              ("res0", gen.dec.res0, "out"), ("res1", gen.dec.res1, "out")]
+    for i in range(gen.dec.ups):
+        stages.append((f"up{i} conv", getattr(gen.dec, f"up{i}"), "out"))
+        nxt = getattr(gen.dec, f"up{i + 1}", gen.dec.head)
+        stages.append((f"up{i} IN+ReLU", nxt, "in"))
+    stages += [("head", gen.dec.head, "out"), ("R.trunk", rec.enc.vgg, "out"),
+               ("R.bigru", rec.enc.rnn, "first"),
+               ("R.decode logits", rec, "first")]
+    for name, module, what in stages:
+        hooks.append(module.register_forward_hook(keep(name, what)))
+    try:
+        _, ids = run(style, labels)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    out["ids"] = ids
+    return out
+
+
+def _flat_rows(torch, value, rows: int):
+    """A stage's output as one f32 vector of its first ``rows`` rows (a
+    batch-1 tensor, the style pyramid's, whole)."""
+    if isinstance(value, (tuple, list)):
+        return torch.cat([_flat_rows(torch, v, rows) for v in value])
+    t = value[:rows] if value.shape[0] > 1 else value
+    return t.float().reshape(-1)
+
+
+def batch_invariance_pipeline(torch) -> dict:
+    """(b) The bf16 request of 1 writer x words 0-63 alone and inside the
+    256-word request, under each setting of ``cudnn.benchmark`` x
+    ``cudnn.deterministic`` (restored after): the max|diff| of rows 0-63 at
+    each stage, the first stage that differs and the ids that flip.  A
+    reading, not a gate."""
+    import numpy as np
+
+    from affganwriting_torch.core.config import default_config
+    from affganwriting_torch.gen.inference import (
+        encode_labels,
+        make_generate_and_read_fn,
+    )
+
+    cfg = default_config()
+    run = make_generate_and_read_fn(cfg, seed=SEED)
+    style = np.random.default_rng(SEED).normal(
+        size=(1, cfg.img_height, cfg.img_width, cfg.style_stack)) \
+        .astype(np.float32)
+    labels = encode_labels(INVARIANCE_WORDS, cfg.output_max_len)
+    cudnn = torch.backends.cudnn
+    before = (cudnn.benchmark, cudnn.deterministic)
+    readings = {}
+    try:
+        for bench in (False, True):
+            for det in (False, True):
+                cudnn.benchmark, cudnn.deterministic = bench, det
+                small = _stage_outputs(torch, run, style, labels[:64])
+                full = _stage_outputs(torch, run, style, labels)
+                diffs = {k: float((_flat_rows(torch, small[k], 64)
+                                   - _flat_rows(torch, full[k], 64))
+                                  .abs().max()) for k in small}
+                first = next((k for k, v in diffs.items() if v > 0), None)
+                flips = int((small["ids"] != full["ids"][:64]).sum())
+                key = f"benchmark={bench} deterministic={det}"
+                readings[key] = {"max_abs_diff": diffs,
+                                 "first_differing_stage": first,
+                                 "ids_flipped": flips,
+                                 "ids": int(small["ids"].numel())}
+                log(f"  [15b] cudnn {key}: first differing stage {first}; "
+                    f"{flips} of {small['ids'].numel()} ids flip")
+                log("  [15b]   max|diff| rows 0-63, batch 64 vs 256: "
+                    + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items()
+                                if k != "ids"))
+    finally:
+        cudnn.benchmark, cudnn.deterministic = before
+    del run
+    torch.cuda.empty_cache()
+    return readings
+
+
+def phase_batch_invariance(torch, ckpt: str) -> dict:
+    """15: (a) the kernels' gate, (b) the pipeline's reading, (c)
+    ``cli/bench_kernels --iters 5``, (d) ``tools/ab_subpixel_quality`` on
+    phase 7's ``best`` (2 + 1 epochs: not trained)."""
+    from affganwriting_torch.cli import bench_kernels
+    from affganwriting_torch.tools import ab_subpixel_quality
+
+    kernels = batch_invariance_kernels(torch)
+    pipeline = batch_invariance_pipeline(torch)
+    log("  [15c] cli/bench_kernels --iters 5:")
+    lines = bench_kernels.main(["--iters", "5"])
+    if [r["kernel"] for r in lines] != ["in_relu", "in_relu", "phase_head",
+                                        "phase_head"]:
+        raise AssertionError(f"bench_kernels --iters 5: {lines}")
+    log("  [15d] tools/ab_subpixel_quality on phase 7's best (not trained):")
+    ab = ab_subpixel_quality.main(["--ckpt", ckpt, "--ckpt-name", "best"])
+    if not ab["fast"]["count"] or ab["fast"]["count"] != \
+            ab["exact"]["count"] or not math.isfinite(ab["image_corr"]):
+        raise AssertionError(f"ab_subpixel_quality: {ab}")
+    torch.cuda.empty_cache()
+    return {"kernels": kernels, "pipeline": pipeline,
+            "bench_kernels_iters5": lines,
+            "ab_subpixel_quality_not_trained": ab}
+
+
 def main() -> int:
     import torch
 
@@ -3623,57 +3819,63 @@ def main() -> int:
         log("[10c,d] tools/ab_int8_static, cli/bench --headline int8, "
             "tools/ab_int8_cer on phase 7's best")
         int8_tools = timed("10cd", phase_int8_tools, torch, tmp)
+        log("[11] the line-generation models")
+        log("[11a] a small f32 HWWithStyle card vs CPU, char_style_dim 0 "
+            "and 16")
+        line_ref = timed("11a", phase_line_reference, torch)
+        log("[11b] HWWithStyle at full width (cf_synth_charSpecMulti)")
+        line = timed("11b", phase_line_full, torch, smi, counts, zero)
+        log("[12] the line GAN: lessons, trainer, CLIs and serving")
+        log("[12a] each lesson step of a small f32 LineGanTrainer, card vs "
+            "CPU")
+        line_train_ref = timed("12a", phase_line_train_reference, torch)
+        log("[12b] LineGanTrainer at full width (cf_synth_charSpecMulti)")
+        line_train = timed("12b", phase_line_train, torch, smi, counts, zero)
+        tmp12 = tempfile.mkdtemp(prefix="phase12_", dir=root)
+        try:
+            log("[12c] train_line -> resume -> validate -> get_styles -> "
+                "generate_lines -> app --selftest")
+            line_clis = timed("12c", phase_line_clis, torch, smi, tmp12,
+                              counts, zero)
+        finally:
+            shutil.rmtree(tmp12, ignore_errors=True)
+        log("[13] line pretraining, IAM-format lines, line evaluation, the "
+            "line REPL and the profilers")
+        tmp13 = tempfile.mkdtemp(prefix="phase13_", dir=root)
+        try:
+            log("[13a] train_hwr: one step card vs CPU, then the CLI")
+            hwr = timed("13a", phase_hwr_pretrain, torch, smi, tmp13)
+            log("[13b] train_auto: one step card vs CPU, then the CLI")
+            auto = timed("13b", phase_auto_pretrain, torch, smi, tmp13)
+            log("[13c-e] train_line --pretrained-hwr --pretrained-ae "
+                "--xml-root -> restore -> evaluate_line -> line_repl")
+            line_pre = timed("13cde", phase_line_pretrained, torch, smi, tmp13,
+                             hwr.pop("path"), auto.pop("path"), counts, zero)
+        finally:
+            shutil.rmtree(tmp13, ignore_errors=True)
+        log("[13f] profile_pipeline and profile_gen at batch 256")
+        profilers = timed("13f", phase_profilers, torch, smi, counts, zero,
+                          times)
+        seconds["13"] = sum(seconds[k] for k in ("13a", "13b", "13cde", "13f"))
+        log("[14] multi-device: the mesh on torch.distributed")
+        tmp14 = tempfile.mkdtemp(prefix="phase14_", dir=root)
+        try:
+            log("[14a] NCCL at world 1: the 1x1 sharded pipeline, "
+                "generate_word --mesh auto")
+            mesh1 = timed("14a", phase_mesh_world1, torch, smi, tmp14, counts,
+                          zero)
+        finally:
+            shutil.rmtree(tmp14, ignore_errors=True)
+        log("[14b-d] two ranks sharing the card over gloo: the sharded "
+            "pipeline, the word step (data=2, 1x2), the line lessons")
+        mesh2 = timed("14bcd", phase_mesh_two_ranks, torch, smi)
+        seconds["14"] = seconds["14a"] + seconds["14bcd"]
+        log("[15] batch invariance: the kernels and the bf16 request at "
+            "batch 64 vs 256 (default_config)")
+        invariance = timed("15", phase_batch_invariance, torch,
+                           str(Path(tmp) / "run" / "ckpt"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log("[11] the line-generation models")
-    log("[11a] a small f32 HWWithStyle card vs CPU, char_style_dim 0 and 16")
-    line_ref = timed("11a", phase_line_reference, torch)
-    log("[11b] HWWithStyle at full width (cf_synth_charSpecMulti)")
-    line = timed("11b", phase_line_full, torch, smi, counts, zero)
-    log("[12] the line GAN: lessons, trainer, CLIs and serving")
-    log("[12a] each lesson step of a small f32 LineGanTrainer, card vs CPU")
-    line_train_ref = timed("12a", phase_line_train_reference, torch)
-    log("[12b] LineGanTrainer at full width (cf_synth_charSpecMulti)")
-    line_train = timed("12b", phase_line_train, torch, smi, counts, zero)
-    tmp12 = tempfile.mkdtemp(prefix="phase12_", dir=root)
-    try:
-        log("[12c] train_line -> resume -> validate -> get_styles -> "
-            "generate_lines -> app --selftest")
-        line_clis = timed("12c", phase_line_clis, torch, smi, tmp12, counts,
-                          zero)
-    finally:
-        shutil.rmtree(tmp12, ignore_errors=True)
-    log("[13] line pretraining, IAM-format lines, line evaluation, the "
-        "line REPL and the profilers")
-    tmp13 = tempfile.mkdtemp(prefix="phase13_", dir=root)
-    try:
-        log("[13a] train_hwr: one step card vs CPU, then the CLI")
-        hwr = timed("13a", phase_hwr_pretrain, torch, smi, tmp13)
-        log("[13b] train_auto: one step card vs CPU, then the CLI")
-        auto = timed("13b", phase_auto_pretrain, torch, smi, tmp13)
-        log("[13c-e] train_line --pretrained-hwr --pretrained-ae "
-            "--xml-root -> restore -> evaluate_line -> line_repl")
-        line_pre = timed("13cde", phase_line_pretrained, torch, smi, tmp13,
-                         hwr.pop("path"), auto.pop("path"), counts, zero)
-    finally:
-        shutil.rmtree(tmp13, ignore_errors=True)
-    log("[13f] profile_pipeline and profile_gen at batch 256")
-    profilers = timed("13f", phase_profilers, torch, smi, counts, zero,
-                      times)
-    seconds["13"] = sum(seconds[k] for k in ("13a", "13b", "13cde", "13f"))
-    log("[14] multi-device: the mesh on torch.distributed")
-    tmp14 = tempfile.mkdtemp(prefix="phase14_", dir=root)
-    try:
-        log("[14a] NCCL at world 1: the 1x1 sharded pipeline, generate_word "
-            "--mesh auto")
-        mesh1 = timed("14a", phase_mesh_world1, torch, smi, tmp14, counts,
-                      zero)
-    finally:
-        shutil.rmtree(tmp14, ignore_errors=True)
-    log("[14b-d] two ranks sharing the card over gloo: the sharded "
-        "pipeline, the word step (data=2, 1x2), the line lessons")
-    mesh2 = timed("14bcd", phase_mesh_two_ranks, torch, smi)
-    seconds["14"] = seconds["14a"] + seconds["14bcd"]
     for k, key in (("in_relu", 0), ("phase_head", 1)):
         row = kernels[[r["name"] for r in kernels].index(k)]
         row["launches_profile_gen_upchain_call"] = \
@@ -3717,7 +3919,7 @@ def main() -> int:
                     "hwr_pretrain": hwr, "auto_pretrain": auto,
                     "line_pretrained": line_pre, "profilers": profilers,
                     "mesh_world1": mesh1, "mesh_two_ranks": mesh2,
-                    "phase_s": seconds,
+                    "batch_invariance": invariance, "phase_s": seconds,
                     "build_s": build_s}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

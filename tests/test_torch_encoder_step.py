@@ -39,13 +39,15 @@ from affganwriting_torch.utils.from_flax import (
 from test_torch_support import (
     TRAIN_SMALL,
     close,
+    jax_merged_step,
     jax_word_gan_state,
+    port_merged_step,
     small_jax_config,
     small_torch_config,
     to_numpy_tree,
     word_batch,
 )
-from test_torch_train_step import BATCH_SEED, _jax_step, _port_step
+from test_torch_train_step import BATCH_SEED
 
 torch.set_num_threads(2)   # tier-1 runs six xdist workers
 
@@ -66,8 +68,8 @@ def runs(tiny_vit):
     jcfg = small_jax_config(**STEP_CONFIG, **ENC)
     tcfg = small_torch_config(**STEP_CONFIG, **ENC)
     batch = word_batch(tcfg, STEP_BATCH, BATCH_SEED)
-    want = _jax_step(jcfg, tcfg, batch)
-    return want, _port_step(tcfg, want["before"], batch)
+    want = jax_merged_step(jcfg, tcfg, batch)
+    return want, port_merged_step(tcfg, want["before"], batch)
 
 
 def test_metrics_and_fakes_match(runs):

@@ -131,6 +131,39 @@ def test_bench_prints_the_jax_benchs_result_shape(capsys):
         "extra": extra}
 
 
+def test_bench_kernels_iters_is_the_event_pairs(monkeypatch, capsys):
+    """``--iters`` (default 20, the JAX CLI's flag) is the number of CUDA
+    event pairs each of ``kernel_times``' timings is the median of; the
+    card, its build and its timings are stubbed here."""
+    import affganwriting_torch.gen.inference as inference
+    from affganwriting_torch.cli import bench_kernels
+    from affganwriting_torch.ops import cuda_build
+    from affganwriting_torch.tools import timing
+
+    p = bench_kernels.parser()
+    assert (p.parse_args([]).iters, p.parse_args([]).batch) == (20, 256)
+    assert p.parse_args(["--iters", "5"]).iters == 5
+    with pytest.raises(SystemExit):
+        bench_kernels.main(["--iters", "0"])
+    seen = []
+    monkeypatch.setattr(inference, "resolve_device", lambda d: None)
+    monkeypatch.setattr(cuda_build, "build", lambda: None)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i: "card")
+    monkeypatch.setattr(timing, "nvidia_smi_line", lambda: "card, 1 W")
+    monkeypatch.setattr(timing, "card_peaks", lambda name: ("SXM", None))
+
+    def kernel_times(peaks, batch, log, iters):
+        seen.append((batch, iters))
+        return {}
+
+    monkeypatch.setattr(bench_kernels, "kernel_times", kernel_times)
+    monkeypatch.setattr(bench_kernels, "json_lines", lambda t, d: [])
+    for argv, want in (([], (256, 20)), (["--iters", "5", "--batch", "8"],
+                                          (8, 5))):
+        bench_kernels.main(argv)
+        assert seen.pop() == want
+
+
 def test_bench_kernels_flags_and_lines(capsys):
     from affganwriting_torch.cli import bench_kernels
 

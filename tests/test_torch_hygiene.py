@@ -100,7 +100,7 @@ def test_trainer_and_clis_need_a_card_or_an_explicit_cpu(tmp_path,
     ``train_word``'s builder and the other CLIs (the teacher phase's two,
     ``train_htr``, ``train_line``, ``get_styles``, the line pretrainers,
     ``evaluate_line``, ``line_repl`` and the two profilers among them),
-    the int8 A/B tools, ``restore_line_trainer``, ``extract_styles``,
+    the int8 and subpixel A/B tools, ``restore_line_trainer``, ``extract_styles``,
     ``generate_lines``, ``evaluate_lines`` and the app's backend raise
     before they build or write anything."""
     import json
@@ -134,7 +134,11 @@ def test_trainer_and_clis_need_a_card_or_an_explicit_cpu(tmp_path,
         train_htr,
         train_word,
     )
-    from affganwriting_torch.tools import ab_int8_cer, ab_int8_static
+    from affganwriting_torch.tools import (
+        ab_int8_cer,
+        ab_int8_static,
+        ab_subpixel_quality,
+    )
     from affganwriting_torch.train.loop import WordGanTrainer
     from test_torch_support import small_torch_config
 
@@ -164,6 +168,8 @@ def test_trainer_and_clis_need_a_card_or_an_explicit_cpu(tmp_path,
                                        + extra),
                 lambda: ab_int8_cer.main(["--ckpt", str(tmp_path / "ck")]
                                          + extra),
+                lambda: ab_subpixel_quality.main(
+                    ["--ckpt", str(tmp_path / "ck")] + extra),
                 lambda: ab_int8_static.main(["--batch", "8"])):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 run()

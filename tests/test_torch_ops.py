@@ -26,8 +26,16 @@ from affganwriting_tpu.ops.phase_head_pallas import phase_head_fold
 from affganwriting_torch.models import blocks as tblocks
 from affganwriting_torch.models import decoder as tdec
 from affganwriting_torch.ops import norms as tnorms
-from affganwriting_torch.ops.in_relu_cuda import in_relu, in_relu_plain
-from affganwriting_torch.ops.phase_head_cuda import phase_head, phase_head_plain
+from affganwriting_torch.ops.in_relu_cuda import (
+    in_relu,
+    in_relu_plain,
+    instance_norm_relu,
+)
+from affganwriting_torch.ops.phase_head_cuda import (
+    phase_head,
+    phase_head_fold as port_phase_head_fold,
+    phase_head_plain,
+)
 from test_torch_support import close, nchw, nhwc
 
 torch.set_num_threads(2)   # tier-1 runs six xdist workers
@@ -134,6 +142,16 @@ def test_in_relu_plain_matches_pallas_and_jnp(relu, c):
     np.testing.assert_array_equal(got, nhwc(in_relu_plain(nchw(x), relu=relu)))
 
 
+@pytest.mark.parametrize("relu", [True, False])
+def test_instance_norm_relu_takes_the_jax_layout(relu):
+    """The port's ``instance_norm_relu`` has the JAX entry's signature and
+    NHWC layout: the Pallas kernel in interpret mode on the same x."""
+    x = _x((2, 8, 12, 128), 12)
+    got = instance_norm_relu(torch.from_numpy(x), relu=relu)
+    assert got.shape == x.shape
+    close(got, _pallas_in_relu(x, relu), 1e-5, "vs Pallas interpret")
+
+
 def test_in_relu_channels_are_independent():
     a = _x((1, 4, 6, 128), 11)
     out = nhwc(in_relu(nchw(np.concatenate([a, a], axis=-1))))
@@ -174,6 +192,22 @@ def test_phase_head_plain_matches_pallas_and_jnp(c):
                          "bias": torch.from_numpy(bias)})
     with torch.no_grad():
         close(nhwc(mod(nchw(x4))), want_jnp, 1e-4, "PhaseHead module")
+
+
+def test_phase_head_fold_takes_the_jax_layout():
+    """The port's ``phase_head_fold`` has the JAX entry's signature and
+    layouts: xp (B, h+4, w+4, 4C) in, (B, 2h, 2w) out, against the Pallas
+    kernel in interpret mode (1e-4: the product's reduction order)."""
+    rng = np.random.default_rng(30)
+    c, b, h, w = 16, 2, 8, 12
+    xp = (rng.normal(size=(b, h + 4, w + 4, 4 * c)) * 0.5).astype(np.float32)
+    kc = (rng.normal(size=(4 * c, 100)) / np.sqrt(49 * c)).astype(np.float32)
+    bias4 = (rng.normal(size=(4,)) * 0.1).astype(np.float32)
+    want = np.asarray(phase_head_fold(jnp.asarray(xp), jnp.asarray(kc),
+                                      jnp.asarray(bias4), interpret=True))
+    got = port_phase_head_fold(*map(torch.from_numpy, (xp, kc, bias4)))
+    assert got.shape == want.shape == (b, 2 * h, 2 * w)
+    close(got, want, 1e-4, "vs Pallas interpret")
 
 
 def test_wrappers_reject_other_devices():

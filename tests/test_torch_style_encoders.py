@@ -315,6 +315,59 @@ def _tv_inception(rng):
     return sd
 
 
+def _equal_trees(got, want, path=""):
+    if isinstance(want, tuple):
+        assert isinstance(got, tuple) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _equal_trees(g, w, f"{path}[{i}]")
+        return
+    assert isinstance(got, dict) == isinstance(want, dict), path
+    if not isinstance(want, dict):
+        np.testing.assert_array_equal(got, want, err_msg=path)
+        assert np.asarray(got).dtype == np.asarray(want).dtype, path
+        return
+    assert got.keys() == want.keys(), path
+    for k in want:
+        _equal_trees(got[k], want[k], f"{path}/{k}")
+
+
+@pytest.mark.parametrize("name", ["resnet50", "inception_v3"])
+def test_flax_layout_importers_equal_the_jax_packages(name):
+    """The port's copies of the JAX package's flax-layout importers
+    (``resnet50_to_flax``, ``inception_v3_to_flax``, ``merge_pretrained``,
+    ``conv_w``, ``linear_w``) give the JAX package's trees bit for bit on
+    one synthetic torchvision state dict; ``merge_pretrained`` refuses a
+    leaf of another shape."""
+    from affganwriting_tpu.eval.inception_v3 import (
+        InceptionV3Pool3 as JInception,
+    )
+    from affganwriting_tpu.utils import torch_import as jimport
+    from affganwriting_torch.utils import torchvision_import as timport
+
+    rng = np.random.default_rng(5)
+    if name == "resnet50":
+        sd, jenc = _tv_resnet50(rng), encoders(name)[0]
+        x = X[:1]
+    else:
+        sd, jenc = _tv_inception(rng), JInception()
+        x = np.zeros((1, 75, 75, 3), np.float32)
+    sd = {k: np.asarray(v, np.float32) for k, v in sd.items()}
+    conv = getattr(timport, f"{name}_to_flax")
+    got, want = conv(sd), getattr(jimport, f"{name}_to_flax")(sd)
+    _equal_trees(got, want)
+    v = to_numpy_tree(random_variables(jenc, x))
+    _equal_trees(timport.merge_pretrained(v, *got),
+                 to_numpy_tree(jimport.merge_pretrained(v, *want)))
+    w = rng.normal(size=(6, 5, 3, 3)).astype(np.float32)
+    for fn, a in (("conv_w", w), ("linear_w", w[:, :, 0, 0])):
+        _equal_trees(getattr(timport, fn)(a), getattr(jimport, fn)(a))
+    bad = {"conv1": {"kernel": np.zeros((1, 1, 1, 1), np.float32)}} \
+        if name == "resnet50" else \
+        {"Conv2d_1a_3x3": {"conv": {"kernel": np.zeros(1, np.float32)}}}
+    with pytest.raises(ValueError, match="imported"):
+        timport.merge_pretrained(v, bad, {})
+
+
 @pytest.mark.parametrize("name", ["resnet50", "efficientnet_v2_l",
                                   "inception_v3"])
 def test_torchvision_importers_match_the_jax_packages(name):

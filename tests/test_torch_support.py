@@ -119,6 +119,50 @@ def jax_word_gan_state(jcfg, batch, rec_dropout: float = 0.0):
             (gen, dis, cla, rec))
 
 
+def jax_merged_step(jcfg, tcfg, batch, compiler_options=None):
+    """One jitted merged step of the JAX package from random leaves
+    (``jax_word_gan_state``); the state before and after as port state
+    dicts, the metrics and extras.  ``compiler_options`` go to every
+    ``jax.jit`` of the step (XLA debug options)."""
+    import functools
+
+    import pytest
+
+    import affganwriting_tpu.train.step as jstep
+
+    from affganwriting_torch.utils.from_flax import word_gan_from_flax
+
+    state, models = jax_word_gan_state(jcfg, batch)
+    before = to_numpy_tree(state)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jstep, "build_models", lambda cfg: models)
+        if compiler_options:
+            mp.setattr(jax, "jit", functools.partial(
+                jax.jit, compiler_options=compiler_options))
+        step = jstep.make_phased_train_step(jcfg, merge_dg=True)
+    new, metrics, extras = step(state, batch, jax.random.key(0))
+    return {"before": word_gan_from_flax(before, tcfg),
+            "after": word_gan_from_flax(to_numpy_tree(new), tcfg),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "extras": to_numpy_tree(extras)}
+
+
+def port_merged_step(tcfg, weights, batch):
+    """The port's merged step on the CPU from ``weights`` (R's dropout 0):
+    the players' state dicts after, the metrics, the extras and the step."""
+    from affganwriting_torch.train.state import PLAYERS, init_state
+    from affganwriting_torch.train.step import make_phased_train_step
+
+    port = init_state(tcfg, device="cpu", weights=weights, rec_dropout=0.0)
+    port, pm, pe = make_phased_train_step(tcfg, merge_dg=True, device="cpu")(
+        port, batch, torch.Generator().manual_seed(0))
+    return {"after": {n: getattr(port, n).model.state_dict()
+                      for n in PLAYERS},
+            "metrics": {k: float(v) for k, v in pm.items()},
+            "extras": {k: v.float().numpy() for k, v in pe.items()},
+            "step": port.step}
+
+
 def to_numpy_tree(variables):
     return jax.tree.map(np.asarray, variables)
 

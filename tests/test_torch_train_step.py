@@ -32,14 +32,12 @@ those readings.  A leaf stepped 1.1 times fails the limits
 computed in bf16.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
 
-import affganwriting_tpu.train.step as jstep
 from affganwriting_torch.models.blocks import frozen_stats
 from affganwriting_torch.train import losses
 from affganwriting_torch.train.parity import (
@@ -65,15 +63,14 @@ from affganwriting_torch.train.step import (
     make_phased_train_step,
     to_device_batch,
 )
-from affganwriting_torch.utils.from_flax import word_gan_from_flax
 from test_torch_support import (
     TRAIN_SMALL,
     close,
-    jax_word_gan_state,
+    jax_merged_step,
     port_in_f64,
+    port_merged_step,
     small_jax_config,
     small_torch_config,
-    to_numpy_tree,
     word_batch,
 )
 
@@ -83,40 +80,14 @@ B = STEP_BATCH
 BATCH_SEED = 11
 
 
-def _jax_step(jcfg, tcfg, batch):
-    """One jitted merged step of the JAX package from random leaves; the
-    state before and after as port state dicts, the metrics and extras."""
-    state, models = jax_word_gan_state(jcfg, batch)
-    before = to_numpy_tree(state)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jstep, "build_models", lambda cfg: models)
-        step = jstep.make_phased_train_step(jcfg, merge_dg=True)
-    new, metrics, extras = step(state, batch, jax.random.key(0))
-    return {"before": word_gan_from_flax(before, tcfg),
-            "after": word_gan_from_flax(to_numpy_tree(new), tcfg),
-            "metrics": {k: float(v) for k, v in metrics.items()},
-            "extras": to_numpy_tree(extras)}
-
-
-def _port_step(tcfg, weights, batch):
-    port = init_state(tcfg, device="cpu", weights=weights, rec_dropout=0.0)
-    port, pm, pe = make_phased_train_step(tcfg, merge_dg=True, device="cpu")(
-        port, batch, torch.Generator().manual_seed(0))
-    return {"after": {n: getattr(port, n).model.state_dict()
-                      for n in PLAYERS},
-            "metrics": {k: float(v) for k, v in pm.items()},
-            "extras": {k: v.float().numpy() for k, v in pe.items()},
-            "step": port.step}
-
-
 @pytest.fixture(scope="module")
 def runs():
     """One merged step of each package from the same weights and batch."""
     jcfg = small_jax_config(**STEP_CONFIG)
     tcfg = small_torch_config(**STEP_CONFIG)
     batch = word_batch(tcfg, B, BATCH_SEED)
-    want = _jax_step(jcfg, tcfg, batch)
-    return want, _port_step(tcfg, want["before"], batch), batch
+    want = jax_merged_step(jcfg, tcfg, batch)
+    return want, port_merged_step(tcfg, want["before"], batch), batch
 
 
 def test_greedy_ids_agree(runs):
@@ -338,13 +309,13 @@ def conditioning_readings():
     jcfg = small_jax_config(**STEP_CONFIG)
     tcfg = small_torch_config(**STEP_CONFIG)
     batch = word_batch(tcfg, B, BATCH_SEED)
-    ref = _jax_step(jcfg, tcfg, batch)
-    f32 = _port_step(tcfg, ref["before"], batch)
+    ref = jax_merged_step(jcfg, tcfg, batch)
+    f32 = port_merged_step(tcfg, ref["before"], batch)
     f64 = _port_step_f64(tcfg, ref["before"], batch)
-    ulp = _port_step(tcfg, ref["before"], dict(
+    ulp = port_merged_step(tcfg, ref["before"], dict(
         batch, style_imgs=batch["style_imgs"] * np.float32(1 + 2 ** -23)))
-    bf16 = _port_step(tcfg.replace(compute_dtype="bfloat16"), ref["before"],
-                      batch)
+    bf16 = port_merged_step(tcfg.replace(compute_dtype="bfloat16"),
+                            ref["before"], batch)
     for what, a, b in (("port f32 vs port f64", f32, f64),
                        ("JAX f32 vs port f64", ref, f64),
                        ("port f32 vs JAX f32", f32, ref),
