@@ -29,6 +29,7 @@ from affganwriting_torch.ops.quant import (
     qparams_to,
     vgg_quant_apply,
 )
+from affganwriting_torch.utils.profiling import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -156,12 +157,16 @@ def generate_images(gen: Generator, style_stack, labels,
     """``gen``'s images (B, H, W, 1) of ``labels`` (B, T), word i in the
     style of stack ``i % S`` of ``style_stack`` (S, H, W, 50), in ``gen``'s
     current mode; the caller picks the grad mode."""
-    style = torch.as_tensor(style_stack, dtype=torch.float32, device=device)
-    labels = torch.as_tensor(labels, device=device).long()
-    b, s = labels.shape[0], style.shape[0]
-    _check_batch(b, s)
-    pyramid = _tile_pyramid(gen.encode_style(style), b, s)
-    return gen.generate(pyramid, labels).permute(0, 2, 3, 1)
+    with span("G"):
+        with span("G.upload"):
+            style = torch.as_tensor(style_stack, dtype=torch.float32,
+                                    device=device)
+            labels = torch.as_tensor(labels, device=device).long()
+        b, s = labels.shape[0], style.shape[0]
+        _check_batch(b, s)
+        with span("G.encode_style"):
+            pyramid = _tile_pyramid(gen.encode_style(style), b, s)
+        return gen.generate(pyramid, labels).permute(0, 2, 3, 1)
 
 
 def make_generate_and_read_fn(config: WordGanConfig, gen_state=None,
@@ -177,13 +182,15 @@ def make_generate_and_read_fn(config: WordGanConfig, gen_state=None,
 
     @torch.inference_mode()
     def run_rec(images, labels):
-        labels = torch.as_tensor(labels, device=dev).long()
-        logits, _ = rec(images.permute(0, 3, 1, 2), labels)
-        return logits.argmax(dim=-1)
+        with span("R"):
+            labels = torch.as_tensor(labels, device=dev).long()
+            logits, _ = rec(images.permute(0, 3, 1, 2), labels)
+            return logits.argmax(dim=-1)
 
     def run(style_stack, labels):
-        images = run_gen(style_stack, labels)
-        return images, run_rec(images, labels)
+        with span("serve.request"):
+            images = run_gen(style_stack, labels)
+            return images, run_rec(images, labels)
 
     run.run_gen, run.run_rec = run_gen, run_rec
     run.gen, run.rec = run_gen.gen, rec
@@ -346,10 +353,13 @@ def make_generate_and_read_quant_fn(config: WordGanConfig, gen_state=None,
         if run.qparams is None:
             raise RuntimeError("no int8 trunk parameters: pass qparams= or "
                                "call run.calibrate(style_stack, labels)")
-        labels = torch.as_tensor(labels, device=dev).long()
-        feat = vgg_quant_apply(run.qparams, images.permute(0, 3, 1, 2))
-        logits, _ = rec.read_features(feat, labels)
-        return logits.argmax(dim=-1)
+        with span("R"):
+            labels = torch.as_tensor(labels, device=dev).long()
+            with span("R.trunk"):
+                feat = vgg_quant_apply(run.qparams,
+                                       images.permute(0, 3, 1, 2))
+            logits, _ = rec.read_features(feat, labels)
+            return logits.argmax(dim=-1)
 
     def calibrate(style_stack, labels):
         with torch.inference_mode():
@@ -358,8 +368,9 @@ def make_generate_and_read_quant_fn(config: WordGanConfig, gen_state=None,
         calibrate_gen_quant(gen, style_stack, labels, dev)
 
     def run(style_stack, labels):
-        images = run_gen(style_stack, labels)
-        return images, run_rec(images, labels)
+        with span("serve.request"):
+            images = run_gen(style_stack, labels)
+            return images, run_rec(images, labels)
 
     run.run_gen, run.run_rec, run.calibrate = run_gen, run_rec, calibrate
     run.gen, run.rec, run.base = gen, rec, base

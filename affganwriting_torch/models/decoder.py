@@ -27,6 +27,10 @@ so go through the two kernels as above.  ``"dynamic"``: per-sample scales;
 every call into the site's ``amax`` buffer (JAX ``("quant", "amax")``;
 non-persistent, so state dicts do not change); ``"static"``: the int8
 conv at the recorded ``amax``, padding the int8 tensor.  Forward-only.
+
+In eval mode the decoder opens the spans ``G.dec.res`` (both res blocks),
+``G.dec.up`` (the upsample stages and their norms) and ``G.dec.head``
+(``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from affganwriting_torch.ops.in_relu_cuda import in_relu
 from affganwriting_torch.ops.norms import instance_norm
 from affganwriting_torch.ops.phase_head_cuda import phase_head
 from affganwriting_torch.ops.quant import dyn_int8_conv, static_int8_conv
+from affganwriting_torch.utils.profiling import span
 
 QUANT_MODES = ("dynamic", "calib", "static")
 
@@ -297,22 +302,26 @@ class Decoder(nn.Module):
 
     def forward(self, content: torch.Tensor, adain_params: torch.Tensor,
                 style_pyramid: Sequence[torch.Tensor]) -> torch.Tensor:
-        sites = split_adain_params(adain_params, 4, self.dim)
-        skip1 = F.max_pool2d(style_pyramid[3], 2, 2)
-        skip3 = style_pyramid[4]
-        x = self.res0(content, sites[0], sites[1], skip1)
-        x = self.res1(x, sites[2], sites[3], skip3)
+        with span("G.dec.res", not self.training):
+            sites = split_adain_params(adain_params, 4, self.dim)
+            skip1 = F.max_pool2d(style_pyramid[3], 2, 2)
+            skip3 = style_pyramid[4]
+            x = self.res0(content, sites[0], sites[1], skip1)
+            x = self.res1(x, sites[2], sites[3], skip3)
         return self.up_chain(x)
 
     def up_chain(self, x: torch.Tensor) -> torch.Tensor:
         """The upsample convs, their instance norms + ReLU (``in_relu`` in
         eval mode) and the head: (B, dim, h, w) -> (B, 1, 8h, 8w)."""
-        for i in range(self.ups):
-            x = getattr(self, f"up{i}")(x)
-            if self.subpixel and i == self.ups - 1:
-                x = torch.relu(instance_norm_phase(x))
-            elif self.training:
-                x = torch.relu(instance_norm(x))
-            else:
-                x = in_relu(x.contiguous())
-        return self.head(x)
+        serving = not self.training
+        with span("G.dec.up", serving):
+            for i in range(self.ups):
+                x = getattr(self, f"up{i}")(x)
+                if self.subpixel and i == self.ups - 1:
+                    x = torch.relu(instance_norm_phase(x))
+                elif self.training:
+                    x = torch.relu(instance_norm(x))
+                else:
+                    x = in_relu(x.contiguous())
+        with span("G.dec.head", serving):
+            return self.head(x)

@@ -3,7 +3,8 @@
 Port of ``affganwriting_tpu/models/generator.py``.  ``encode_style`` runs
 once per style stack, ``generate`` consumes the cached pyramid with any
 number of words.  Internally NCHW; ``encode_style`` takes the style stack in
-the JAX layout (S, H, W, 50).
+the JAX layout (S, H, W, 50).  In eval mode ``generate`` opens the spans
+``G.text_mix`` and ``G.dec`` (``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from affganwriting_torch.models.decoder import Decoder
 from affganwriting_torch.models.style_encoders import get_style_encoder
 from affganwriting_torch.models.text_encoder import TextEncoderFC
 from affganwriting_torch.parallel.ops import all_reduce_model, model_input
+from affganwriting_torch.utils.profiling import span
 
 
 class SplitMix(nn.Module):
@@ -88,10 +90,13 @@ class Generator(nn.Module):
     def generate(self, pyramid: Sequence[torch.Tensor],
                  labels: torch.Tensor) -> torch.Tensor:
         """Style pyramid + labels (B, T) -> image (B, 1, H, W)."""
+        serving = not self.training
         f_xs = pyramid[-1]
-        adain_params, content = self.text_encoder(labels, f_xs.shape[2:])
-        mixed = self.linear_mix(f_xs, content)
-        return self.dec(mixed, adain_params, pyramid)
+        with span("G.text_mix", serving):
+            adain_params, content = self.text_encoder(labels, f_xs.shape[2:])
+            mixed = self.linear_mix(f_xs, content)
+        with span("G.dec", serving):
+            return self.dec(mixed, adain_params, pyramid)
 
     def forward(self, style_stack, labels):
         return self.generate(self.encode_style(style_stack), labels)

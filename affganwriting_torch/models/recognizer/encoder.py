@@ -7,7 +7,9 @@ ordered h-major (index h*C + c), and a bidirectional GRU whose two
 directions are summed.  In train mode the trunk's BatchNorms use batch
 statistics, whole (n, c) channels of the trunk output drop out
 (``Dropout2d``), and so does the first GRU layer's output; masks come from
-the ``generator`` passed in.
+the ``generator`` passed in.  In eval mode the trunk with its flattening
+and the BiGRU open the spans ``R.trunk`` and ``R.bigru``
+(``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from affganwriting_torch.models.blocks import BatchNorm, Conv2d, dropout
+from affganwriting_torch.utils.profiling import span
 
 _VGG19_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
               512, 512, 512, 512, "M", 512, 512, 512, 512)
@@ -66,14 +69,15 @@ class BiGRU(nn.Module):
                 bidirectional=True, batch_first=True))
 
     def forward(self, x, generator: torch.Generator | None = None):
-        finals = []
-        for li in range(self.layers):
-            x, h_n = getattr(self, f"gru{li}")(x)  # h_n: (2, B, H), fwd/bwd
-            finals.append(h_n[1])
-            if self.training and li < self.layers - 1:
-                x = dropout(x, self.dropout, generator)
-        out = x[..., :self.hidden] + x[..., self.hidden:]
-        return out, torch.stack(finals)
+        with span("R.bigru", not self.training):
+            finals = []
+            for li in range(self.layers):
+                x, h_n = getattr(self, f"gru{li}")(x)  # h_n (2, B, H) fwd/bwd
+                finals.append(h_n[1])
+                if self.training and li < self.layers - 1:
+                    x = dropout(x, self.dropout, generator)
+            out = x[..., :self.hidden] + x[..., self.hidden:]
+            return out, torch.stack(finals)
 
 
 class RecEncoder(nn.Module):
@@ -89,9 +93,10 @@ class RecEncoder(nn.Module):
     def sequence(self, img, generator: torch.Generator | None = None):
         """The VGG trunk's features as the BiGRU's f32 input (B, W/16,
         (H/16) * 512)."""
-        if img.shape[1] == 1:
-            img = img.expand(-1, 3, -1, -1)
-        return self.feat_sequence(self.vgg(img), generator)
+        with span("R.trunk", not self.training):
+            if img.shape[1] == 1:
+                img = img.expand(-1, 3, -1, -1)
+            return self.feat_sequence(self.vgg(img), generator)
 
     def feat_sequence(self, feat, generator: torch.Generator | None = None):
         """Trunk features (B, 512, H/16, W/16) -> the BiGRU's f32 input;

@@ -27,6 +27,7 @@ from affganwriting_torch.models.blocks import dropout
 from affganwriting_torch.models.recognizer.attention import LocationAttention
 from affganwriting_torch.models.recognizer.encoder import RecEncoder
 from affganwriting_torch.parallel.ops import batch_random
+from affganwriting_torch.utils.profiling import span
 
 
 class DecoderCell(nn.Module):
@@ -107,26 +108,28 @@ class Recognizer(nn.Module):
         ``teacher_rate`` > 0 (the mask drawn from ``generator`` before any
         dropout mask of the decoder), step t + 1's input is ``labels[:, t +
         1]`` where the mask's row t is set.  Without either nothing is
-        drawn: free running."""
-        steps = self.output_max_len - 1
-        if teacher_mask is None and teacher_rate > 0:
-            teacher_mask = batch_random(
-                torch.rand, (steps, labels.shape[0]), generator,
-                labels.device, batch_dim=1) < teacher_rate
-        hidden = hidden0
-        attn = enc_out.new_zeros(enc_out.shape[:2])
-        prev = labels[:, 0]
-        logits, attns = [], []
-        for t in range(steps):
-            hidden, attn, step_logits = self.dec(hidden, attn, prev, enc_out,
-                                                 generator)
-            prev = step_logits.argmax(dim=-1)   # ties: first index, as jnp
-            if teacher_mask is not None:
-                prev = torch.where(teacher_mask[t], labels[:, t + 1].long(),
-                                   prev)
-            logits.append(step_logits)
-            attns.append(attn)
-        return torch.stack(logits, dim=1), torch.stack(attns, dim=1)
+        drawn: free running.  In eval mode the whole loop is the span
+        ``R.decode`` (``utils/profiling.span``)."""
+        with span("R.decode", not self.training):
+            steps = self.output_max_len - 1
+            if teacher_mask is None and teacher_rate > 0:
+                teacher_mask = batch_random(
+                    torch.rand, (steps, labels.shape[0]), generator,
+                    labels.device, batch_dim=1) < teacher_rate
+            hidden = hidden0
+            attn = enc_out.new_zeros(enc_out.shape[:2])
+            prev = labels[:, 0]
+            logits, attns = [], []
+            for t in range(steps):
+                hidden, attn, step_logits = self.dec(hidden, attn, prev,
+                                                     enc_out, generator)
+                prev = step_logits.argmax(dim=-1)  # ties: first index, as jnp
+                if teacher_mask is not None:
+                    prev = torch.where(teacher_mask[t],
+                                       labels[:, t + 1].long(), prev)
+                logits.append(step_logits)
+                attns.append(attn)
+            return torch.stack(logits, dim=1), torch.stack(attns, dim=1)
 
     def beam_search(self, img, beam_size: int = 3,
                     eos_id: int = VOCAB.end):

@@ -52,6 +52,13 @@ global program does:
   (``parallel/ops.batch_shard``);
 * on a 'model' axis the TP-ruled layers gather their outputs or sum their
   partial products over the model group (``Linear``, ``SplitMix``).
+
+Under a running ``torch.profiler`` the step is the span ``train.step``
+(``utils/profiling.span``) over ``step.to_device`` and, for each phase
+``rec``, ``cla``, ``dis`` and ``gen``, ``step.<phase>.fwd`` (the forward
+and the loss; G's pair forward is ``step.gen.fwd``, the 4-phase step's
+no-grad fakes ``step.dis.fwd``), ``.bwd`` (the backward), ``.opt`` (the
+optimizer step) and, on a mesh, ``.allreduce`` (``sync_grads``).
 """
 
 from __future__ import annotations
@@ -71,6 +78,7 @@ from affganwriting_torch.parallel.ops import (
 )
 from affganwriting_torch.train import losses
 from affganwriting_torch.train.state import WordGanState
+from affganwriting_torch.utils.profiling import span
 
 
 def to_device_batch(batch: Mapping, dev: torch.device) -> dict:
@@ -119,14 +127,18 @@ def sync_grads(params, mesh) -> None:
             g.div_(mesh.model)
 
 
-def _update(opt: torch.optim.Optimizer, loss: torch.Tensor,
-            mesh=None) -> None:
+def _update(opt: torch.optim.Optimizer, loss: torch.Tensor, mesh,
+            phase: str) -> None:
     """Back-propagate this rank's part of the loss, bring the gradients
-    together over ``mesh`` (``sync_grads``) and step."""
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    sync_grads((p for g in opt.param_groups for p in g["params"]), mesh)
-    opt.step()
+    together over ``mesh`` (``sync_grads``) and step, in ``phase``'s
+    spans."""
+    with span(f"step.{phase}.bwd"):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+    with span(f"step.{phase}.allreduce", mesh is not None):
+        sync_grads((p for g in opt.param_groups for p in g["params"]), mesh)
+    with span(f"step.{phase}.opt"):
+        opt.step()
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -159,71 +171,79 @@ def make_phased_train_step(config: WordGanConfig, merge_dg: bool = False, *,
         return mean_loss / n_data if n_data > 1 else mean_loss
 
     def phase_rec(state, b, rng):
-        rec = state.rec.model.train()
-        if state.rec.opt is None:     # frozen: forward only; stats move
-            with torch.no_grad():
-                logits, _ = rec(b["img_ch0"], b["label_ch0"], rng)
-                return losses.rec_loss(logits, b["label_ch0"], ls), logits
-        logits, _ = rec(b["img_ch0"], b["label_ch0"], rng)
-        loss = losses.rec_loss(logits, b["label_ch0"], ls)
-        _update(state.rec.opt, loss, mesh)
+        with span("step.rec.fwd"):
+            rec = state.rec.model.train()
+            if state.rec.opt is None:   # frozen: forward only; stats move
+                with torch.no_grad():
+                    logits, _ = rec(b["img_ch0"], b["label_ch0"], rng)
+                    return losses.rec_loss(logits, b["label_ch0"], ls), logits
+            logits, _ = rec(b["img_ch0"], b["label_ch0"], rng)
+            loss = losses.rec_loss(logits, b["label_ch0"], ls)
+        _update(state.rec.opt, loss, mesh, "rec")
         return loss.detach(), logits.detach()
 
     def phase_cla(state, b):
-        cla = state.cla.model.train()
-        loss = share(losses.writer_ce_loss(cla(b["img_ch0"]),
-                                           b["writer_ids"]))
-        _update(state.cla.opt, loss, mesh)
+        with span("step.cla.fwd"):
+            cla = state.cla.model.train()
+            loss = share(losses.writer_ce_loss(cla(b["img_ch0"]),
+                                               b["writer_ids"]))
+        _update(state.cla.opt, loss, mesh, "cla")
         return loss.detach()
 
     def phase_dis(state, b, xg, xg_swap):
         """D's update on detached fakes, the batch as [ch0, ch1, xg,
         xg_swap]."""
         n = xg.shape[0]
-        quad = torch.cat([b["img_ch0"], b["img_ch1"], xg.detach(),
-                          xg_swap.detach()])
-        s = state.dis.model.train()(quad)
-        loss = share(0.5 * (losses.dis_real_loss(s[:n])
-                            + losses.dis_real_loss(s[n:2 * n]))
-                     + 0.5 * (losses.dis_fake_loss(s[2 * n:3 * n])
-                              + losses.dis_fake_loss(s[3 * n:])))
-        _update(state.dis.opt, loss, mesh)
+        with span("step.dis.fwd"):
+            quad = torch.cat([b["img_ch0"], b["img_ch1"], xg.detach(),
+                              xg_swap.detach()])
+            s = state.dis.model.train()(quad)
+            loss = share(0.5 * (losses.dis_real_loss(s[:n])
+                                + losses.dis_real_loss(s[n:2 * n]))
+                         + 0.5 * (losses.dis_fake_loss(s[2 * n:3 * n])
+                                  + losses.dis_fake_loss(s[3 * n:])))
+        _update(state.dis.opt, loss, mesh, "dis")
         return loss.detach()
 
     def phase_gen(state, b, xg, xg_swap, rng):
         """G's update against the current D, C and R, back through the
         graph of ``xg`` and ``xg_swap``."""
         n = xg.shape[0]
-        dis, cla, rec = (state.dis.model, state.cla.model,
-                         state.rec.model.train())
-        both = torch.cat([xg, xg_swap])
-        d_s = dis(both)
-        l_dis = share(0.5 * (losses.gen_adv_loss(d_s[:n])
-                             + losses.gen_adv_loss(d_s[n:])))
-        c_s = cla(both)
-        l_cla = share(0.5 * (
-            losses.writer_ce_loss(c_s[:n], b["writer_ids"])
-            + losses.writer_ce_loss(c_s[n:], b["writer_ids"])))
-        if config.oov:
-            l_l1 = torch.zeros((), device=dev)
-        else:
-            l_l1 = share(losses.recon_l1(xg, b["img_xt"]))
-        with frozen_stats(rec):
-            logits_xt, _ = rec(xg, b["label_xt"], rng)
-            logits_swap, _ = rec(xg_swap, b["label_xt_swap"], rng)
-        l_rec = 0.5 * (losses.rec_loss(logits_xt, b["label_xt"], ls)
-                       + losses.rec_loss(logits_swap, b["label_xt_swap"], ls))
-        total = (config.w_dis * l_dis + config.w_cla * l_cla
-                 + config.w_l1 * l_l1 + config.w_rec * l_rec)
+        with span("step.gen.fwd"):
+            dis, cla, rec = (state.dis.model, state.cla.model,
+                             state.rec.model.train())
+            both = torch.cat([xg, xg_swap])
+            d_s = dis(both)
+            l_dis = share(0.5 * (losses.gen_adv_loss(d_s[:n])
+                                 + losses.gen_adv_loss(d_s[n:])))
+            c_s = cla(both)
+            l_cla = share(0.5 * (
+                losses.writer_ce_loss(c_s[:n], b["writer_ids"])
+                + losses.writer_ce_loss(c_s[n:], b["writer_ids"])))
+            if config.oov:
+                l_l1 = torch.zeros((), device=dev)
+            else:
+                l_l1 = share(losses.recon_l1(xg, b["img_xt"]))
+            with frozen_stats(rec):
+                logits_xt, _ = rec(xg, b["label_xt"], rng)
+                logits_swap, _ = rec(xg_swap, b["label_xt_swap"], rng)
+            l_rec = 0.5 * (
+                losses.rec_loss(logits_xt, b["label_xt"], ls)
+                + losses.rec_loss(logits_swap, b["label_xt_swap"], ls))
+            total = (config.w_dis * l_dis + config.w_cla * l_cla
+                     + config.w_l1 * l_l1 + config.w_rec * l_rec)
         params = list(state.gen.model.parameters())
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        # the style taps the decoder does not read get no gradient: zero,
-        # as jax.grad gives
-        for p, g in zip(params, grads):
-            p.grad = torch.zeros_like(p) if g is None else g
-        sync_grads(params, mesh)
-        state.gen.opt.step()
-        state.gen.opt.zero_grad(set_to_none=True)
+        with span("step.gen.bwd"):
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            # the style taps the decoder does not read get no gradient:
+            # zero, as jax.grad gives
+            for p, g in zip(params, grads):
+                p.grad = torch.zeros_like(p) if g is None else g
+        with span("step.gen.allreduce", mesh is not None):
+            sync_grads(params, mesh)
+        with span("step.gen.opt"):
+            state.gen.opt.step()
+            state.gen.opt.zero_grad(set_to_none=True)
         aux = {"l_dis": l_dis, "l_cla": l_cla, "l_l1": l_l1, "l_rec": l_rec,
                "l_total": total}
         return ({k: v.detach() for k, v in aux.items()},
@@ -231,15 +251,18 @@ def make_phased_train_step(config: WordGanConfig, merge_dg: bool = False, *,
 
     def step(state: WordGanState, batch: Mapping, generator: torch.Generator,
              on_phase: Callable[[str], None] | None = None):
-        if mesh is None:
-            return run(state, batch, generator, on_phase)
-        with batch_shard(mesh.data_rank, n_data):
-            state, metrics, extras = run(state, batch, generator, on_phase)
-        return state, reduce_values(metrics, group), extras
+        with span("train.step"):
+            if mesh is None:
+                return run(state, batch, generator, on_phase)
+            with batch_shard(mesh.data_rank, n_data):
+                state, metrics, extras = run(state, batch, generator,
+                                             on_phase)
+            return state, reduce_values(metrics, group), extras
 
     def run(state, batch, generator, on_phase):
         mark = on_phase or (lambda name: None)
-        b = to_device_batch(batch, dev)
+        with span("step.to_device"):
+            b = to_device_batch(batch, dev)
         l_rec_tr, rec_logits_tr = phase_rec(state, b, generator)
         mark("rec")
         l_cla_tr = phase_cla(state, b)
@@ -247,14 +270,16 @@ def make_phased_train_step(config: WordGanConfig, merge_dg: bool = False, *,
         gen = state.gen.model.train()
         pair = (b["style"], b["label_xt"], b["label_xt_swap"])
         if merge_dg:
-            xg, xg_swap = generate_pair(gen, *pair)
+            with span("step.gen.fwd"):
+                xg, xg_swap = generate_pair(gen, *pair)
             l_dis_tr = phase_dis(state, b, xg, xg_swap)
         else:
-            with torch.no_grad(), frozen_stats(gen):
+            with span("step.dis.fwd"), torch.no_grad(), frozen_stats(gen):
                 fakes = generate_pair(gen, *pair)
             l_dis_tr = phase_dis(state, b, *fakes)
             mark("dis")
-            xg, xg_swap = generate_pair(gen, *pair)
+            with span("step.gen.fwd"):
+                xg, xg_swap = generate_pair(gen, *pair)
         aux, logits_xt, logits_swap = phase_gen(state, b, xg, xg_swap,
                                                 generator)
         mark("dis_gen" if merge_dg else "gen")

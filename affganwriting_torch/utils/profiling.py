@@ -2,13 +2,34 @@
 
 The port of ``affganwriting_tpu/utils/profiling.py``:
 
+  * ``span(name)``: a named range of the program's own layers.  With a
+    ``torch.profiler`` running (``torch.autograd._profiler_enabled()``) it
+    is ``torch.profiler.record_function(name)``, a ``user_annotation`` in
+    the same Kineto trace as the CUDA kernels, on the same clock, with a
+    ``gpu_user_annotation`` interval on the device row; with none it is
+    one shared no-op context (about half a microsecond), so spans are on
+    exactly when a profiler runs and there is no switch.  The tree:
+
+      - ``serve.request`` (``gen/inference.py``, the bf16 and w8a8
+        generate-and-read) > ``G`` (``generate_images``) > ``G.upload``,
+        ``G.encode_style``, ``G.text_mix``, ``G.dec`` > ``G.dec.res``,
+        ``G.dec.up``, ``G.dec.head``; then ``R`` > ``R.trunk``,
+        ``R.bigru``, ``R.decode``: at most 13 a request.  The spans inside
+        the models open in eval mode only (``span(name, not
+        self.training)``), where the serving path runs them;
+      - ``train.step`` (``train/step.py``) > ``step.to_device``, then for
+        each phase ``rec``, ``cla``, ``dis``, ``gen``:
+        ``step.<phase>.fwd``, ``.bwd``, ``.opt`` and, on a mesh,
+        ``.allreduce`` (around ``sync_grads``): at most 16 a step, 20 on
+        a mesh;
+
   * ``trace(logdir)``: a context manager around ``torch.profiler`` (CPU
     and, with a card, CUDA activities) that writes the enclosed work's
     trace to ``logdir/trace.pt.trace.json``, a Chrome trace that
     TensorBoard's PyTorch profiler plugin, ``chrome://tracing`` and
     Perfetto read; it yields the profiler, whose ``key_averages()`` give
-    the sums by kernel;
-  * ``StepTimer``: per-step wall time accumulator (sec_per_iter);
+    the sums by kernel.  It is the way to see the spans: run the work
+    inside it and open the file in Perfetto;
   * ``debug_numerics(True)``: ``torch.autograd.set_detect_anomaly``, the
     reference's anomaly flag (base_trainer.py:196-197) that the JAX
     package maps to jax_debug_nans/infs;
@@ -48,30 +69,15 @@ def debug_numerics(enable: bool = True) -> None:
     torch.autograd.set_detect_anomaly(enable)
 
 
-class StepTimer:
-    """sec/iter + iters/sec accumulator (base_trainer.py:212-231)."""
+_NO_SPAN = contextlib.nullcontext()
 
-    def __init__(self):
-        self.total = 0.0
-        self.count = 0
-        self._t0 = None
 
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.total += time.perf_counter() - self._t0
-        self.count += 1
-        return False
-
-    @property
-    def sec_per_iter(self) -> float:
-        return self.total / max(self.count, 1)
-
-    @property
-    def iters_per_sec(self) -> float:
-        return self.count / max(self.total, 1e-9)
+def span(name: str, on: bool = True):
+    """``record_function(name)`` while a ``torch.profiler`` runs and ``on``
+    holds, else one shared no-op context."""
+    if on and torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class ByteCounter(TorchDispatchMode):

@@ -1,0 +1,16 @@
+"""R's host time a request: the span ``R``'s length on the host clock,
+median over the traced requests (``harness/program_spans.py``)."""
+
+from benchmark.harness import program_spans as ps
+
+LAYER = "R: models/recognizer/"
+UNIT = "ms"
+SOURCE = "program_span"
+MOVES = "words_per_s"
+
+
+def read(ctx):
+    prog = ps.of(ctx) if ctx.get("kind") != "train" else None
+    if prog is None:
+        return None
+    return ps.median(ps.host_ms(prog, ps.in_rec))
