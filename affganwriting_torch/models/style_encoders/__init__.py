@@ -3,17 +3,25 @@ stack and emits a pyramid of at least 5 taps whose taps 3 and 4 (the
 decoder's skips) and last tap have ``style_dim`` channels, the last resized
 to (H/8, W/8).  All ten keys of the JAX package's registry: resnet50,
 resnet18, cnn, vgg19, inception_v3, efficientnet_v2_l and dinov2_s/b/l/g.
-``vgg19`` has a fixed width of 512 and takes no ``style_dim``."""
+``vgg19`` has a fixed width of 512 and takes no ``style_dim``.
+
+Every registered encoder replays its eval-mode forward as captured CUDA
+graphs when the call allows it (``utils/cuda_graphs.replay_eval_forward``:
+eval mode, grad off, no dispatch mode, a CUDA input), under the spans
+``G.encode_style.capture`` and ``G.encode_style.replay``."""
 
 from __future__ import annotations
 
 from typing import Callable
+
+from affganwriting_torch.utils.cuda_graphs import replay_eval_forward
 
 _REGISTRY: dict[str, Callable] = {}
 
 
 def register(name: str):
     def deco(cls):
+        cls = replay_eval_forward("G.encode_style")(cls)
         _REGISTRY[name] = cls
         return cls
     return deco
