@@ -89,8 +89,8 @@ def control_train(cell, seed: int, dev, cast=ref.fp8_round) -> dict:
                               cast) for p in rstep.PLAYERS}
     opts = rstep.make_opts(models, cfg)
     gen = torch.Generator(device=dev).manual_seed(T.dropout_seed(seed))
-    tap = T.IdTap(models["rec"], cfg["max_chars"] + 1)
-    firsts = T.FirstOutputs(models, cfg["max_chars"] + 1)
+    tap = T.IdTap(models["rec"], cfg)
+    firsts = T.FirstOutputs(models, cfg)
     prog = {"loss": []}
     for k, b in enumerate(checked):
         losses = rstep.step(models, opts, T.device_batch(b, dev), gen, cfg,
@@ -102,7 +102,7 @@ def control_train(cell, seed: int, dev, cast=ref.fp8_round) -> dict:
                             for n, opt in opts.items()
                             for (name, _), m in zip(
                                 models[n].named_parameters(), opt.m)}
-    tap.handle.remove()
+    tap.close()
     prog["delta"] = T.changes(models, init)
     prog["feeds"] = [tuple(f.cpu() for f in tap.feeds(k))
                      for k in range(T.CHECK_STEPS)]

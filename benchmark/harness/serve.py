@@ -13,8 +13,8 @@ The check: after the window, a sample of the finished requests drawn from
 the seed (the one with the most words in it) is recomputed by the
 float32 reference from the same style stacks, labels and weights: G's
 images against the program's, and R, reading the program's images and fed
-the program's greedy ids, against the program's per-step logits, which a
-hook on R's output layer captured in the timed calls.
+the program's greedy ids, against the program's per-step logits, which
+R's tap (its recognizer part's ``Tap``) read in the timed calls.
 """
 
 from __future__ import annotations
@@ -80,25 +80,27 @@ class Server:
                   for p in ("gen", "rec")}
         self.run = build(self.cfg, states["gen"], states["rec"], dev)
         del states
-        self.captured, self.taps = [], []
+        self.taps, self.rec_tap = [], None
 
     def capture(self):
         """Keep, for each request, the style encoder's taps that the
-        decoder reads (3 and 4) and R's per-step logits (forward hooks);
-        returns the hooks' handles."""
+        decoder reads (3 and 4; a forward hook) and R's calls (its tap);
+        returns what to remove after the window."""
+        self.rec_tap = ref.tap(self.cfg, self.run.rec)
         return (self.run.gen.enc_image.register_forward_hook(
                     lambda m, a, out: self.taps.append((out[3], out[4]))),
-                self.run.rec.dec.out.register_forward_hook(
-                    lambda m, a, out: self.captured.append(out)))
+                self.rec_tap)
 
     def request(self, req):
         """One request: (images (B, H, W) on the host, ids (B, steps) on
-        the host, logits (B, steps, V) and style taps on the device)."""
-        self.captured, self.taps = [], []
+        the host, R's calls as its tap took them and style taps on the
+        device)."""
+        self.taps = []
         labels = data.encode_labels(req.words, self.max_len)
         imgs, ids = self.run(self.pool.stacks[req.writer:req.writer + 1],
                              labels)
-        return imgs[..., 0].cpu(), ids.cpu(), self.captured, self.taps
+        calls = self.rec_tap.take() if self.rec_tap else (lambda: [])
+        return imgs[..., 0].cpu(), ids.cpu(), calls, self.taps
 
     def warm(self, sizes):
         for n in sizes:
@@ -204,9 +206,9 @@ def serve(cell, seed: int, seconds: float, trace_path, dev, t_start: float,
         sp.remove()
 
     sample = pick_sample(done, cell["check"]["requests"], seed)
-    outputs = [(r, im, ids, torch.stack(lg, 1).float().cpu(),
+    outputs = [(r, im, ids, first_logits(calls),
                 [t.float().cpu() for t in taps[0]] if taps else None)
-               for r, im, ids, lg, taps in sample]
+               for r, im, ids, calls, taps in sample]
     pool = srv.pool
     del srv, server, done, sample
     if dev.type == "cuda":
@@ -214,6 +216,13 @@ def serve(cell, seed: int, seconds: float, trace_path, dev, t_start: float,
     result["numbers"] = judge(cell["config_file"]["config"], seed, dev, pool,
                               outputs)
     return result
+
+
+def first_logits(calls):
+    """The per-step logits of a request's first call of R, on the host;
+    None where R's tap read no call."""
+    read = calls()
+    return read[0][0].float().cpu() if read else None
 
 
 def pick_sample(done, k: int, seed: int):
@@ -260,7 +269,7 @@ def judge(cfg: dict, seed: int, dev, pool, outputs, cast=None) -> dict:
             style = torch.as_tensor(pool.stacks[req.writer:req.writer + 1],
                                     device=dev)
             pyramid = g.encode_style(style)
-            if taps is None:
+            if taps is None or logits is None:
                 return dict.fromkeys(NUMBERS, float("inf"))
             for t, rt in zip(taps, (pyramid[3], pyramid[4])):
                 sq["st_d"] += float((t.to(dev) - rt).square().sum())

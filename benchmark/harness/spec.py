@@ -2,8 +2,12 @@
 ``workloads/<cell>.json`` (its configuration, traffic mix, chips and why),
 a configuration ``configs/<config>.json``, a traffic mix
 ``traffic/<mix>.json``, a per-layer metric ``metrics/<metric>.py`` (read
-in the cells that its entry in ``BENCHMARK.json`` names).  Adding any of
-them is adding a file."""
+in the cells that its entry in ``BENCHMARK.json`` names), and a
+configuration's reference parts ``reference/<kind>_<name>.py``: its style
+encoder ``reference/style_<style_encoder>.py`` and its recognizer, with
+the tap that reads the program's R, ``reference/rec_<recognizer>.py``
+(``reference.models.part``; what a part file holds is in that module's
+docstring).  Adding any of them is adding a file."""
 
 from __future__ import annotations
 

@@ -95,54 +95,53 @@ def device_batch(b: dict, dev) -> dict:
 
 
 class IdTap:
-    """R's greedy ids of every decode step, from a hook on its decoder
-    cell; ``feeds(k)`` regroups them into step k's three decodes."""
+    """The ids R fed itself in each of its calls, from R's tap (its
+    recognizer part's ``Tap``); ``feeds(k)`` gives step k's three decodes
+    once ``close`` has taken them."""
 
-    def __init__(self, rec, steps: int):
-        self.steps, self.ids = steps, []
-        self.handle = rec.dec.register_forward_hook(
-            lambda m, a, out: self.ids.append(out[2].argmax(-1)))
+    def __init__(self, rec, cfg: dict):
+        self.tap, self.ids = ref.tap(cfg, rec), []
+
+    def close(self) -> None:
+        self.ids = [ids for _, ids in self.tap.take()()]
+        self.tap.remove()
 
     def feeds(self, k: int):
-        per = [torch.stack(self.ids[i:i + self.steps], 1)
-               for i in range(0, len(self.ids), self.steps)]
-        return tuple(per[3 * k:3 * k + 3])
+        return tuple(self.ids[3 * k:3 * k + 3])
 
 
 class FirstOutputs:
     """The first step's forward outputs, from hooks: G's fake (the
     decoder's first image), D's scores of the real words (the first two
     quarters of its first call), C's writer logits of the real words, and
-    R's per-step logits of its first decode (the real words)."""
+    R's per-step logits of its first decode (the real words, from R's
+    tap)."""
 
-    def __init__(self, models: dict, steps: int):
-        self.out, self.handles, self.dec = {}, [], []
-        self.steps, self.rows = steps, None
+    def __init__(self, models: dict, cfg: dict):
+        self.out, self.handles = {}, []
 
-        def first(name, pick=lambda o: o):
+        def first(name):
             def hook(m, a, o):
                 if name not in self.out:
-                    self.out[name] = pick(o).detach().float().clone()
+                    self.out[name] = o.detach().float().clone()
             return hook
-
-        def dec_step(m, a, o):
-            if len(self.dec) < steps:
-                self.dec.append(o[2].detach().float().clone())
 
         for name, mod in (("fake", models["gen"].dec), ("dis", models["dis"]),
                           ("cla", models["cla"])):
             self.handles.append(mod.register_forward_hook(first(name)))
-        self.handles.append(models["rec"].dec.register_forward_hook(dec_step))
+        self.rec_tap = ref.tap(cfg, models["rec"])
 
     def close(self) -> dict:
+        calls = self.rec_tap.take()()
+        self.rec_tap.remove()
         for h in self.handles:
             h.remove()
         out = dict(self.out)
         if "dis" in out:        # [ch0, ch1, fake, fake_swap] -> the reals
             n = out["dis"].shape[0] // 4
             out["dis"], out["dis_ch1"] = out["dis"][:n], out["dis"][n:2 * n]
-        if self.dec:
-            out["rec"] = torch.stack(self.dec, 1)
+        if calls:
+            out["rec"] = calls[0][0].float().clone()
         return out
 
 
@@ -167,8 +166,8 @@ def train(cell, seed: int, seconds: float, trace_path, dev, t_start: float,
         step = fault(step)
     gen = torch.Generator(device=dev).manual_seed(dropout_seed(seed))
     batches = traffic.train_batches(mix, seed, pool, vocab, cfg)
-    tap = IdTap(state.rec.model, cfg["max_chars"] + 1)
-    firsts = FirstOutputs(_models(state), cfg["max_chars"] + 1)
+    tap = IdTap(state.rec.model, cfg)
+    firsts = FirstOutputs(_models(state), cfg)
     checked, prog = [], {"loss": []}
     for k in range(CHECK_STEPS):
         b = next(batches)
@@ -179,7 +178,7 @@ def train(cell, seed: int, seconds: float, trace_path, dev, t_start: float,
             prog["grad"] = program_grads(state)
             prog["first"] = {n: gather_rows(v.cpu(), mesh)
                              for n, v in firsts.close().items()}
-    tap.handle.remove()
+    tap.close()
     prog["delta"] = changes(_models(state), states)
     prog["feeds"] = [tuple(gather_rows(f.cpu(), mesh) for f in tap.feeds(k))
                      for k in range(CHECK_STEPS)]
@@ -328,7 +327,7 @@ def judge(cfg: dict, seed: int, dev, batches: list, prog: dict,
             opt.names = [k for k, _ in models[n].named_parameters()]
         gen = torch.Generator(device=dev).manual_seed(dropout_seed(seed))
         loss_err = loss1 = 0.0
-        firsts = FirstOutputs(models, cfg["max_chars"] + 1)
+        firsts = FirstOutputs(models, cfg)
         for k, b in enumerate(batches):
             feeds = tuple(f.to(dev) for f in prog["feeds"][k])
             with torch.enable_grad():

@@ -1,14 +1,28 @@
 """The plain reference of the word GAN's four players, in float32.
 
 A frozen copy, in plain PyTorch, of the mathematics of the port's G (the
-resnet50 and DINOv2-style ViT style encoders, the text encoder, the split
-mix and the AdaIN/iAFF decoder with its folded subpixel upsampling), R (the
-VGG19-BN trunk, the BiGRU and the attention decoder), D and C.  It imports
+text encoder, the split mix and the AdaIN/iAFF decoder with its folded
+subpixel upsampling, around a style encoder), R, D and C.  It imports
 nothing of the program: the benchmark hands it the same inputs and weights
 it hands the program, under the program's parameter names, and it computes
 everything again.  No CUDA kernel, cache or batching trick: instance norm
 plus ReLU is two plain ops, the 7x7 tanh head one plain convolution of the
 folded kernel.
+
+G's style encoder and R are parts, each in a file of its own that
+``part`` finds by the configuration's name: ``style_<style_encoder>.py``
+and ``rec_<recognizer>.py`` beside this module.  A style part's
+``build(cfg)`` returns the encoder, whose forward maps the NCHW stack to
+the five maps the decoder reads; a recognizer part's ``build(cfg, p)``
+returns R, whose ``forward(img, labels, gen=None, feed=None)`` gives the
+per-step logits (B, T - 1, V), fed ``feed`` where given and its own greedy
+ids where not.  Its ``Tap(rec, cfg)`` hooks an R, the program's in any of
+its modes or the reference's (``tap``): ``take()`` returns a function that
+gives, for each call of R since the last take, the logits (B, T - 1, V) as
+R computed them and the ids (B, T - 1) it fed itself, and launches nothing
+until that function is called; ``remove()`` takes the hooks off.  This
+module keeps what the parts share: the layers, the DINOv2-style ViT
+family, G's text encoder, mix and decoder, D and C.
 
 Every convolution and dense layer passes its input and weight through
 ``Layer.cast``, the identity for the reference.  ``set_cast`` swaps it for
@@ -17,6 +31,10 @@ the control, the reference rounded to a lower precision
 """
 
 from __future__ import annotations
+
+import functools
+import importlib
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -143,60 +161,6 @@ def dropout(x, p, gen, channels=False):
 
 # ---------------------------------------------------------------- G ------
 
-class Bottleneck(nn.Module):
-    def __init__(self, cin, f, stride, down):
-        super().__init__()
-        self.conv1, self.bn1 = Conv(cin, f, 1, bias=False), BatchNorm(f)
-        self.conv2 = Conv(f, f, 3, stride, 1, bias=False)
-        self.bn2 = BatchNorm(f)
-        self.conv3, self.bn3 = Conv(f, 4 * f, 1, bias=False), BatchNorm(4 * f)
-        if down:
-            self.down_conv = Conv(cin, 4 * f, 1, stride, bias=False)
-            self.down_bn = BatchNorm(4 * f)
-
-    def forward(self, x):
-        h = torch.relu(self.bn1(self.conv1(x)))
-        h = torch.relu(self.bn2(self.conv2(h)))
-        h = self.bn3(self.conv3(h))
-        if hasattr(self, "down_conv"):
-            x = self.down_bn(self.down_conv(x))
-        return torch.relu(h + x)
-
-
-class ResNet50Encoder(nn.Module):
-    def __init__(self, cin=50, style_dim=512, final_hw=(8, 27)):
-        super().__init__()
-        self.final_hw = tuple(final_hw)
-        self.conv1 = Conv(cin, 64, 7, 2, 3, bias=False)
-        self.bn1 = BatchNorm(64)
-        self.stages, taps, c = [], [64], 64
-        for li, (n, f) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512))):
-            names = []
-            for bi in range(n):
-                stride = 2 if bi == 0 and li > 0 else 1
-                name = f"layer{li + 1}_{bi}"
-                self.add_module(name, Bottleneck(
-                    c, f, stride, bi == 0 and (stride != 1 or c != 4 * f)))
-                names.append(name)
-                c = 4 * f
-            self.stages.append(names)
-            taps.append(c)
-        for i, tc in enumerate(taps):
-            self.add_module(f"reduce{i}", Conv(tc, style_dim, 1))
-
-    def forward(self, x):
-        h = torch.relu(self.bn1(self.conv1(x)))
-        taps = [h]
-        h = F.max_pool2d(h, 3, 2, 1)
-        for names in self.stages:
-            for n in names:
-                h = getattr(self, n)(h)
-            taps.append(h)
-        out = [getattr(self, f"reduce{i}")(t) for i, t in enumerate(taps)]
-        out[-1] = resize_bilinear(out[-1], self.final_hw)
-        return out
-
-
 class LayerNorm(nn.Module):
     def __init__(self, d):
         super().__init__()
@@ -279,9 +243,6 @@ class ViTEncoder(nn.Module):
         out[-1] = resize_bilinear(out[-1], self.final_hw)
         return out
 
-
-VIT_ARCHS = {"dinov2_l": dict(dim=1024, depth=24, heads=16,
-                              taps=(4, 8, 16, 23))}
 
 
 class TextEncoder(nn.Module):
@@ -486,14 +447,8 @@ class Decoder(nn.Module):
 class Generator(nn.Module):
     def __init__(self, cfg: dict):
         super().__init__()
-        final_hw = (cfg["img_height"] // 8, cfg["img_width"] // 8)
         sd = cfg["style_dim"]
-        if cfg["style_encoder"] == "resnet50":
-            self.enc_image = ResNet50Encoder(cfg["style_stack"], sd, final_hw)
-        else:
-            self.enc_image = ViTEncoder(**VIT_ARCHS[cfg["style_encoder"]],
-                                        cin=cfg["style_stack"], style_dim=sd,
-                                        final_hw=final_hw)
+        self.enc_image = part("style", cfg["style_encoder"]).build(cfg)
         self.text_encoder = TextEncoder(cfg["max_chars"] + 2, 55,
                                         cfg["text_embed_dim"], sd,
                                         cfg["adain_param_dim"])
@@ -508,146 +463,6 @@ class Generator(nn.Module):
         adain_params, content = self.text_encoder(labels, pyramid[-1].shape[2:])
         return self.dec(self.linear_mix(pyramid[-1], content), adain_params,
                         pyramid)
-
-
-# ---------------------------------------------------------------- R ------
-
-VGG19 = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
-         512, 512, 512, 512, "M", 512, 512, 512, 512)
-
-
-class VGGTrunk(nn.Module):
-    def __init__(self):
-        super().__init__()
-        cin, i = 3, 0
-        for v in VGG19:
-            if v != "M":
-                self.add_module(f"conv{i}", Conv(cin, v, 3, 1, 1))
-                self.add_module(f"bn{i}", BatchNorm(v))
-                cin, i = v, i + 1
-
-    def forward(self, x):
-        i = 0
-        for v in VGG19:
-            if v == "M":
-                x = F.max_pool2d(x, 2, 2)
-            else:
-                x = torch.relu(getattr(self, f"bn{i}")(
-                    getattr(self, f"conv{i}")(x)))
-                i += 1
-        return x
-
-
-class BiGRU(nn.Module):
-    def __init__(self, din, hidden=512, layers=2, p=0.5):
-        super().__init__()
-        self.hidden, self.layers, self.p = hidden, layers, p
-        for li in range(layers):
-            self.add_module(f"gru{li}", nn.GRU(
-                din if li == 0 else 2 * hidden, hidden, bidirectional=True,
-                batch_first=True))
-
-    def forward(self, x, gen=None):
-        finals = []
-        for li in range(self.layers):
-            x, h_n = getattr(self, f"gru{li}")(x)
-            finals.append(h_n[1])
-            if self.training and li < self.layers - 1:
-                x = dropout(x, self.p, gen)
-        return x[..., :self.hidden] + x[..., self.hidden:], torch.stack(finals)
-
-
-class RecEncoder(nn.Module):
-    def __init__(self, hidden, img_h, p):
-        super().__init__()
-        self.p = p
-        self.vgg = VGGTrunk()
-        self.rnn = BiGRU((img_h // 16) * 512, hidden, p=p)
-
-    def forward(self, img, gen=None):
-        feat = self.vgg(img.expand(-1, 3, -1, -1) if img.shape[1] == 1 else img)
-        if self.training:
-            feat = dropout(feat, self.p, gen, channels=True)
-        b, c, h, w = feat.shape
-        return self.rnn(feat.permute(0, 3, 2, 1).reshape(b, w, h * c), gen)
-
-
-class LocationAttention(nn.Module):
-    def __init__(self, hidden=512, filters=128, kernel=7):
-        super().__init__()
-        self.hidden_proj = Dense(hidden, hidden)
-        self.conv1d = nn.Conv1d(1, filters, kernel, padding=kernel // 2)
-        self.prev_attn_proj = Dense(filters, hidden)
-        self.encoder_output_proj = Dense(hidden, hidden)
-        self.out = Dense(hidden, 1)
-
-    def forward(self, hidden, enc_out, prev_attn):
-        h_att = self.hidden_proj(hidden.mean(dim=0))[:, None, :]
-        conv = self.prev_attn_proj(
-            self.conv1d(prev_attn[:, None, :]).transpose(1, 2))
-        energy = self.out(torch.tanh(self.encoder_output_proj(enc_out)
-                                     + h_att + conv))[..., 0]
-        return torch.softmax(energy, dim=-1)
-
-
-class DecoderCell(nn.Module):
-    def __init__(self, vocab, hidden, embed, p):
-        super().__init__()
-        self.p = p
-        self.attention = LocationAttention(hidden)
-        self.embedding = nn.Embedding(vocab, embed)
-        self.gru0 = nn.GRUCell(embed + hidden, hidden)
-        self.gru1 = nn.GRUCell(hidden, hidden)
-        self.out = Dense(hidden, vocab)
-
-    def forward(self, hidden, prev_attn, prev_id, enc_out, gen=None):
-        attn = self.attention(hidden, enc_out, prev_attn)
-        context = torch.einsum("bt,bth->bh", attn, enc_out)
-        h0 = self.gru0(torch.cat([self.embedding(prev_id), context], -1),
-                       hidden[0])
-        x = dropout(h0, self.p, gen) if self.training else h0
-        h1 = self.gru1(x, hidden[1])
-        return torch.stack([h0, h1]), attn, self.out(h1)
-
-
-def _keep_n_gate(hidden):
-    def hook(grad):
-        return torch.cat([grad.new_zeros(2 * hidden), grad[2 * hidden:]])
-    return hook
-
-
-class Recognizer(nn.Module):
-    """VGG-BiGRU encoder and the attention decoder.  ``feed`` (B, steps)
-    gives the token each step reads after GO: the program's own greedy
-    ids, so the reference follows the path the program took; without it
-    the reference decodes greedily on its own."""
-
-    def __init__(self, cfg: dict, p=0.5):
-        super().__init__()
-        h = cfg["rec_hidden"]
-        self.steps = cfg["max_chars"] + 1
-        self.enc = RecEncoder(h, cfg["img_height"], p)
-        self.dec = DecoderCell(55, h, cfg["rec_embed"], p)
-        self.gate_hooks()
-
-    def gate_hooks(self):
-        """Hold the GRUs' recurrent r and z biases, which flax's GRU cell
-        lacks, at their value: their gradient is zeroed.  Call again after
-        the parameters are replaced (``to_empty``)."""
-        for name, prm in self.named_parameters():
-            if name.rsplit(".", 1)[-1].startswith("bias_hh"):
-                prm.register_hook(_keep_n_gate(self.dec.gru0.hidden_size))
-
-    def forward(self, img, labels, gen=None, feed=None):
-        enc_out, hidden = self.enc(img, gen)
-        attn = enc_out.new_zeros(enc_out.shape[:2])
-        prev = labels[:, 0]
-        logits = []
-        for t in range(self.steps):
-            hidden, attn, lg = self.dec(hidden, attn, prev, enc_out, gen)
-            prev = lg.argmax(-1) if feed is None else feed[:, t]
-            logits.append(lg)
-        return torch.stack(logits, dim=1)
 
 
 # ------------------------------------------------------------ D and C ----
@@ -731,13 +546,36 @@ class PatchNet(nn.Module):
         return h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
 
 
+@functools.cache
+def part(kind: str, name: str):
+    """The module of a part: ``<kind>_<name>.py`` beside this file, where
+    ``kind`` is ``style`` or ``rec``."""
+    path = Path(__file__).resolve().parent / f"{kind}_{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"no {kind} part named {name!r} ({path})")
+    return importlib.import_module(f"{__package__}.{path.stem}")
+
+
+def style_args(cfg: dict) -> dict:
+    """A style encoder's stack channels, output width and last map's size."""
+    return dict(cin=cfg["style_stack"], style_dim=cfg["style_dim"],
+                final_hw=(cfg["img_height"] // 8, cfg["img_width"] // 8))
+
+
+def tap(cfg: dict, rec: nn.Module):
+    """The tap of ``cfg``'s recognizer part on ``rec``: the program's R in
+    any of its modes, or the reference's."""
+    return part("rec", cfg["recognizer"]).Tap(rec, cfg)
+
+
 def build(cfg: dict, which: str, p: float = 0.5) -> nn.Module:
     """One player of ``cfg`` (the configuration file's ``config``), with
-    empty weights: ``gen``, ``rec``, ``dis`` or ``cla``."""
+    empty weights: ``gen``, ``rec``, ``dis`` or ``cla``; R's dropout
+    rate ``p``."""
     if which == "gen":
         return Generator(cfg)
     if which == "rec":
-        return Recognizer(cfg, p)
+        return part("rec", cfg["recognizer"]).build(cfg, p)
     if which == "dis":
         return PatchNet(cfg, cfg["dis_final_size"])
     if which == "cla":

@@ -10,6 +10,7 @@ import torch
 
 from benchmark.harness import data, traffic, weights
 from benchmark.harness import train as T
+from benchmark.reference import models as ref
 from benchmark.reference import step as rstep
 from benchmark.tests import tiny
 
@@ -35,9 +36,9 @@ def test_serving_agrees(encoder):
     run = make_generate_and_read_fn(pc, w["gen"], w["rec"], device=DEV)
     pool = data.StylePool(3, cfg, 2, DEV)
     labels = data.encode_labels(data.corpus()[:3], 12)
-    logits = []
-    run.rec.dec.out.register_forward_hook(lambda m, a, o: logits.append(o))
+    tap = ref.tap(cfg, run.rec)
     imgs, ids = run(pool.stacks[:1], labels)
+    (logits, fed), = tap.take()()
     g = weights.materialize(cfg, "gen", w["gen"], DEV).eval()
     r = weights.materialize(cfg, "rec", w["rec"], DEV).eval()
     with torch.no_grad():
@@ -46,8 +47,8 @@ def test_serving_agrees(encoder):
         rl = r(imgs.permute(0, 3, 1, 2).float(), lab, feed=ids)
     torch.testing.assert_close(x.permute(0, 2, 3, 1), imgs, atol=2e-4,
                                rtol=0)
-    torch.testing.assert_close(rl, torch.stack(logits, 1), atol=1e-5,
-                               rtol=1e-5)
+    torch.testing.assert_close(rl, logits, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(fed, ids, atol=0, rtol=0)
 
 
 def test_first_step_agrees():
@@ -57,8 +58,9 @@ def test_first_step_agrees():
     w = {p: weights.draw(cfg, p, 5, DEV) for p in rstep.PLAYERS}
     state, step = T.make_program(cfg, w, DEV)
     b = next(traffic.train_batches(mix, 5, pool, data.corpus(), cfg))
-    tap = T.IdTap(state.rec.model, cfg["max_chars"] + 1)
+    tap = T.IdTap(state.rec.model, cfg)
     _, metrics, _ = step(state, b, torch.Generator().manual_seed(1))
+    tap.close()
     models = {p: weights.materialize(cfg, p, w[p], DEV) for p in rstep.PLAYERS}
     opts = rstep.make_opts(models, cfg)
     losses = rstep.step(models, opts, T.device_batch(b, DEV),
