@@ -28,6 +28,14 @@ Numerics, held to the JAX package's:
 
 The preprocess is differentiable, so R's loss reaches G's fakes; TrOCR's own
 weights are frozen by the caller (``rec_frozen``).
+
+In eval mode ``TrOCRRecognizer.forward`` opens the spans ``R.preprocess``
+(resize and pad), ``R.encode`` (the ViT), ``R.decode`` (the char->token
+ids, the embedding, the decoder layers and the output projection) and
+``R.vocab`` (the gather onto the 55 symbols, the mask and the padding),
+under ``gen/inference.py``'s ``R`` (``utils/profiling.span``).  The
+benchmark's float32 reference of this module is
+``benchmark/reference/rec_trocr.py``.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from torch import nn
 
 from affganwriting_torch.core.config import VOCAB
 from affganwriting_torch.models.blocks import resize_bilinear
+from affganwriting_torch.utils.profiling import span
 
 LN_EPS = 1e-6
 
@@ -380,15 +389,22 @@ class TrOCRRecognizer(nn.Module):
                            logits.new_full((), self.MASK_FILL))
 
     def forward(self, img, labels, generator: torch.Generator | None = None):
-        pixels = preprocess_for_trocr(img, self.arch.image_size)
-        dec_in = self.map_vec[labels[:, :-1].long()]
-        logits = self.vocab_logits(self.core(pixels, dec_in))
-        t, want = logits.shape[1], self.output_max_len - 1
-        if t < want:
-            pad = logits.new_full((logits.shape[0], want - t,
-                                   logits.shape[-1]), self.MASK_FILL)
-            logits = torch.cat([logits, pad], dim=1)
-        return logits[:, :want].float(), None
+        serving = not self.training
+        with span("R.preprocess", serving):
+            pixels = preprocess_for_trocr(img, self.arch.image_size)
+        with span("R.encode", serving):
+            enc = self.core.encode(pixels)
+        with span("R.decode", serving):
+            logits = self.core.decode(self.map_vec[labels[:, :-1].long()],
+                                      enc)
+        with span("R.vocab", serving):
+            logits = self.vocab_logits(logits)
+            t, want = logits.shape[1], self.output_max_len - 1
+            if t < want:
+                pad = logits.new_full((logits.shape[0], want - t,
+                                       logits.shape[-1]), self.MASK_FILL)
+                logits = torch.cat([logits, pad], dim=1)
+            return logits[:, :want].float(), None
 
 
 # --------------------------------------------------------------------------

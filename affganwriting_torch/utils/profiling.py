@@ -14,9 +14,11 @@ The port of ``affganwriting_tpu/utils/profiling.py``:
         generate-and-read) > ``G`` (``generate_images``) > ``G.upload``,
         ``G.encode_style``, ``G.text_mix``, ``G.dec`` > ``G.dec.res``,
         ``G.dec.up``, ``G.dec.head``; then ``R`` > ``R.trunk``,
-        ``R.bigru``, ``R.decode``; on the card ``G.encode_style`` >
+        ``R.bigru``, ``R.decode`` (the seq2seq R) or ``R.preprocess``,
+        ``R.encode``, ``R.decode``, ``R.vocab`` (TrOCR,
+        ``models/recognizer/trocr.py``); on the card ``G.encode_style`` >
         ``G.encode_style.replay`` (``utils/cuda_graphs.py``, the style
-        encoder's graph): at most 14 a request, and
+        encoder's graph): at most 14 a request (15 with TrOCR), and
         ``G.encode_style.capture`` beside the replay in a request that
         captures a new input signature.  The spans inside the models open
         in eval mode only (``span(name, not self.training)``), where the

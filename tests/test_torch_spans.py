@@ -1,6 +1,8 @@
 """The program's spans (``utils/profiling.span``): the tree a served
-request and a train step open under ``torch.profiler``, nothing without
-one, and the same outputs either way.
+request (with the seq2seq R, or TrOCR's ``R.preprocess``, ``R.encode``,
+``R.decode`` and ``R.vocab``) and a train step open under
+``torch.profiler``, nothing without one or in train mode, and the same
+outputs either way.
 
 Small fp32 configurations on the CPU; the spans are read back from the
 profiler's Chrome trace, as the benchmark reads them on the card.
@@ -100,6 +102,54 @@ def test_request_outputs_are_bit_equal_with_spans_on(served):
     (img0, ids0), (img1, ids1), _ = served
     assert torch.equal(img0, img1)
     assert torch.equal(ids0, ids1)
+
+
+TROCR_R = ("R.preprocess", "R.encode", "R.decode", "R.vocab")
+
+
+@pytest.fixture(scope="module")
+def trocr_served(tmp_path_factory):
+    """A request with TrOCR as R (``tiny``): untraced, traced, its spans."""
+    cfg = small_torch_config(recognizer="trocr", trocr_preset="tiny")
+    run = make_generate_and_read_fn(cfg, device="cpu", seed=3)
+    rng = np.random.default_rng(1)
+    style = rng.normal(size=(1, cfg.img_height, cfg.img_width,
+                             cfg.style_stack)).astype(np.float32)
+    labels = encode_labels(WORDS, cfg.output_max_len)
+    plain = run(style, labels)
+    traced, spans = profiled(lambda: run(style, labels),
+                             tmp_path_factory.mktemp("trocr"))
+    return run, plain, traced, spans
+
+
+def test_trocr_request_opens_its_spans_under_r(trocr_served):
+    *_, spans = trocr_served
+    tree = {n: p for n, p in REQUEST_TREE.items()
+            if n not in ("R.trunk", "R.bigru", "R.decode")}
+    tree.update(dict.fromkeys(TROCR_R, "R"))
+    assert sorted(n for n, _, _ in spans) == sorted(tree)
+    assert parents(spans) == {n: {p} for n, p in tree.items()}
+    order = [n for n, _, _ in spans if n in TROCR_R]
+    assert order == list(TROCR_R)
+
+
+def test_trocr_request_outputs_are_bit_equal_with_spans_on(trocr_served):
+    _, (img0, ids0), (img1, ids1), _ = trocr_served
+    assert torch.equal(img0, img1)
+    assert torch.equal(ids0, ids1)
+
+
+def test_trocr_in_train_mode_opens_no_span(trocr_served, tmp_path):
+    run, (img, _), _, _ = trocr_served
+    rec = run.rec.train()
+    labels = torch.as_tensor(encode_labels(WORDS, rec.output_max_len))
+    try:
+        (logits, _), spans = profiled(
+            lambda: rec(img.permute(0, 3, 1, 2), labels), tmp_path)
+    finally:
+        rec.eval()
+    assert spans == []
+    assert logits.shape[:2] == (len(WORDS), rec.output_max_len - 1)
 
 
 @pytest.fixture(scope="module", params=[True, False], ids=["merged", "4phase"])
