@@ -172,7 +172,8 @@ def generate_images(gen: Generator, style_stack, labels,
 def make_generate_and_read_fn(config: WordGanConfig, gen_state=None,
                               rec_state=None, *, device=None, seed: int = 0):
     """Generation + recognition: ``run(style_stack, labels) -> (images
-    (B, H, W, 1), greedy ids (B, T - 1))``.  ``run.run_gen`` and
+    (B, H, W, 1), greedy ids (B, T - 1))``; ``run`` uploads the labels
+    once and hands G and R the device tensor.  ``run.run_gen`` and
     ``run.run_rec`` are the two halves; ``run.gen``/``run.rec`` the
     models.  Random weights come from ``seed`` (G) and ``seed + 1`` (R)
     where no state dict is given."""
@@ -189,6 +190,9 @@ def make_generate_and_read_fn(config: WordGanConfig, gen_state=None,
 
     def run(style_stack, labels):
         with span("serve.request"):
+            # once, before G: a copy from host memory waits for the stream,
+            # so one inside R would wait for G's kernels to drain
+            labels = torch.as_tensor(labels, device=dev).long()
             images = run_gen(style_stack, labels)
             return images, run_rec(images, labels)
 

@@ -28,13 +28,23 @@ every call into the site's ``amax`` buffer (JAX ``("quant", "amax")``;
 non-persistent, so state dicts do not change); ``"static"``: the int8
 conv at the recorded ``amax``, padding the int8 tensor.  Forward-only.
 
+In eval mode with grad off, on the card and in the float path (no int8
+conv site), ``Decoder.forward`` replays a CUDA graph captured for each
+input signature, at most ``Decoder.MAX_GRAPHS`` (12: the preview's batches
+of 1-8 words and the bulk 128 fit) under the spans ``G.dec.capture`` and
+``G.dec.replay`` (``utils/cuda_graphs.py``); an int8 mode runs eager and
+keeps them, so a float call after a w8a8 call replays.  Both kernels run
+inside the graph unchanged.
+
 In eval mode the decoder opens the spans ``G.dec.res`` (both res blocks),
 ``G.dec.up`` (the upsample stages and their norms) and ``G.dec.head``
-(``utils/profiling.span``).
+(``utils/profiling.span``) in eager calls and inside a capture; a replay
+stands for them as ``G.dec.replay``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -52,6 +62,7 @@ from affganwriting_torch.ops.in_relu_cuda import in_relu
 from affganwriting_torch.ops.norms import instance_norm
 from affganwriting_torch.ops.phase_head_cuda import phase_head
 from affganwriting_torch.ops.quant import dyn_int8_conv, static_int8_conv
+from affganwriting_torch.utils.cuda_graphs import replay_eval_forward
 from affganwriting_torch.utils.profiling import span
 
 QUANT_MODES = ("dynamic", "calib", "static")
@@ -91,12 +102,34 @@ def _phase_fold_matrix(taps: int, offsets: int) -> torch.Tensor:
     return f
 
 
+def _head_fold_matrix() -> torch.Tensor:
+    """g[P, d, p, a] = 1 where hi-res tap a of output phase P reads input
+    phase p = (P + a) mod 2 at low-res offset d = floor((P + a) / 2)."""
+    g = torch.zeros(2, 5, 2, 7)
+    for P in (0, 1):
+        for a in range(-3, 4):
+            g[P, (P + a) // 2 + 2, (P + a) % 2, a + 3] = 1.0
+    return g
+
+
+@functools.cache
+def _fold_matrix(kind: str, device: torch.device,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The upsample convs' (``"up"``) or the head's (``"head"``) 0/1 fold
+    matrix on ``device`` in ``dtype``, copied there once: a copy from host
+    memory waits for the stream, and a CUDA graph's capture refuses it.  A
+    plain tensor, which autograd may save."""
+    with torch.inference_mode(False):
+        f = _phase_fold_matrix(5, 3) if kind == "up" else _head_fold_matrix()
+        return f.to(device=device, dtype=dtype)
+
+
 def fold_upsample_kernel(w: torch.Tensor) -> torch.Tensor:
     """(Co, Cin, 5, 5) kernel of nearest-2x + 5x5 conv -> (4*Co, Cin, 3, 3)
     low-res phase kernels, output channel (2p + q)*Co + co:
     out[2m+p, 2n+q] = sum_{a,b} w[a+2, b+2] x[m + floor((p+a)/2),
     n + floor((q+b)/2)]."""
-    f = _phase_fold_matrix(5, 3).to(w)
+    f = _fold_matrix("up", w.device, w.dtype)
     co, ci = w.shape[:2]
     w4 = torch.einsum("pya,qxb,oiab->pqoiyx", f, f, w)
     return w4.reshape(4 * co, ci, 3, 3)
@@ -130,13 +163,7 @@ def fold_head_kernel(k: torch.Tensor) -> torch.Tensor:
     kc[(2p+q)*C + c, 4*(5*dy + dx) + 2P + Q] is the weight of input phase
     (p, q) at low-res offset (dy-2, dx-2) for output phase (P, Q)."""
     c = k.shape[1]
-    # g[P, d, p, a] = 1 where hi-res tap a of output phase P reads input
-    # phase p = (P + a) mod 2 at low-res offset d = floor((P + a) / 2)
-    g = torch.zeros(2, 5, 2, 7)
-    for P in (0, 1):
-        for a in range(-3, 4):
-            g[P, (P + a) // 2 + 2, (P + a) % 2, a + 3] = 1.0
-    g = g.to(k)
+    g = _fold_matrix("head", k.device, k.dtype)
     k4 = torch.einsum("PypA,QxqB,cAB->pqcyxPQ", g, g, k[0])
     return k4.reshape(4 * c, 100)
 
@@ -262,6 +289,9 @@ class AdaINResBlock(nn.Module):
         return x + h
 
 
+@replay_eval_forward("G.dec", max_graphs=12,
+                     when=lambda dec: all(m.quant_mode is None
+                                          for m in dec._quant_blocks()))
 class Decoder(nn.Module):
     def __init__(self, dim: int = 512, ups: int = 3, pad_type: str = "reflect",
                  subpixel_upsample: bool = True,
@@ -291,13 +321,18 @@ class Decoder(nn.Module):
                           for i in range(self.ups)})
         return sites
 
+    def _quant_blocks(self) -> tuple[nn.Module, ...]:
+        return (self.res0, self.res1,
+                *(getattr(self, f"up{i}") for i in range(self.ups)))
+
     def set_quant_mode(self, mode: str | None) -> None:
         """None (the float path) or one of ``QUANT_MODES`` for every conv
-        site; eval mode only."""
+        site; eval mode only.  The float path's graphs are kept: the
+        replay predicate keeps every int8 mode eager, and a float-path graph
+        reads the weights by address and never an ``amax``."""
         if mode is not None and mode not in QUANT_MODES:
             raise ValueError(f"unknown quant_mode {mode!r}")
-        for m in (self.res0, self.res1,
-                  *(getattr(self, f"up{i}") for i in range(self.ups))):
+        for m in self._quant_blocks():
             m.quant_mode = mode
 
     def forward(self, content: torch.Tensor, adain_params: torch.Tensor,

@@ -7,8 +7,9 @@ resnet18, cnn, vgg19, inception_v3, efficientnet_v2_l and dinov2_s/b/l/g.
 
 Every registered encoder replays its eval-mode forward as captured CUDA
 graphs when the call allows it (``utils/cuda_graphs.replay_eval_forward``:
-eval mode, grad off, no dispatch mode, a CUDA input), under the spans
-``G.encode_style.capture`` and ``G.encode_style.replay``."""
+eval mode, grad off, no dispatch mode, a CUDA input; at most 4 input
+signatures an encoder), under the spans ``G.encode_style.capture`` and
+``G.encode_style.replay``."""
 
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ _REGISTRY: dict[str, Callable] = {}
 
 def register(name: str):
     def deco(cls):
-        cls = replay_eval_forward("G.encode_style")(cls)
+        cls = replay_eval_forward("G.encode_style", max_graphs=4)(cls)
         _REGISTRY[name] = cls
         return cls
     return deco

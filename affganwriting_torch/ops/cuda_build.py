@@ -160,7 +160,9 @@ def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
 
 def count_work(flops: float, nbytes: float) -> None:
     """Add one launch's work (matmul FLOPs; bytes, each input read once and
-    each output written once) to every open ``work_counter``."""
+    each output written once) to every open ``work_counter``.  A launch is
+    a host call: an eager call or one inside a CUDA graph's warm-up and
+    capture, never a replay of the graph (``utils/cuda_graphs.py``)."""
     for c in _work_counters:
         c["flops"] += flops
         c["bytes"] += nbytes

@@ -66,6 +66,8 @@ def in_relu(x: torch.Tensor, eps: float = 1e-5,
     return y
 
 
+# host calls that launched the kernel: eager calls and a CUDA graph's
+# warm-up and capture, not its replays (``utils/cuda_graphs.py``)
 in_relu.launches = 0
 
 

@@ -200,6 +200,8 @@ def phase_head(xp: torch.Tensor, kc: torch.Tensor,
     return out
 
 
+# host calls that launched a route: eager calls and a CUDA graph's warm-up
+# and capture, not its replays (``utils/cuda_graphs.py``)
 phase_head.launches = 0          # f32 route, CUDA cores
 phase_head.launches_wgmma = 0    # bf16 route, wgmma + TMA
 

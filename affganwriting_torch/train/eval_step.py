@@ -5,7 +5,9 @@ the style stack with its running statistics, D, C and R score the fakes
 (R without dropout, decoding greedily), and the step returns the losses,
 R's greedy predictions for the CER accumulators and the images.  On the
 card each ``generate`` runs the ``in_relu`` kernel twice and ``phase_head``
-once, so a step launches 4 + 2.
+once, inside the decoder's CUDA graph (``utils/cuda_graphs.py``): G stays
+in eval mode across steps, so a step after the first replays the encoder's
+and the decoder's graphs.
 """
 
 from __future__ import annotations

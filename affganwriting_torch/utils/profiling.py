@@ -17,10 +17,12 @@ The port of ``affganwriting_tpu/utils/profiling.py``:
         ``R.bigru``, ``R.decode`` (the seq2seq R) or ``R.preprocess``,
         ``R.encode``, ``R.decode``, ``R.vocab`` (TrOCR,
         ``models/recognizer/trocr.py``); on the card ``G.encode_style`` >
-        ``G.encode_style.replay`` (``utils/cuda_graphs.py``, the style
-        encoder's graph): at most 14 a request (15 with TrOCR), and
-        ``G.encode_style.capture`` beside the replay in a request that
-        captures a new input signature.  The spans inside the models open
+        ``G.encode_style.replay`` and ``G.dec`` > ``G.dec.replay``
+        (``utils/cuda_graphs.py``, the style encoder's and the decoder's
+        graphs; the decoder's replay stands for ``G.dec.res``, ``.up`` and
+        ``.head``): 12 a request (13 with TrOCR), and ``<name>.capture``
+        beside a replay in a request that captures a new input signature,
+        with the decoder's three inside it.  The spans inside the models open
         in eval mode only (``span(name, not self.training)``), where the
         serving path runs them;
       - ``train.step`` (``train/step.py``) > ``step.to_device``, then for

@@ -222,6 +222,18 @@ def ptxas_info(build_log: str, kernel: str) -> dict:
     return info
 
 
+def dec_launches(captures: int = 0, eager: int = 0) -> tuple:
+    """The host counts (``in_relu``, ``phase_head`` wgmma route, f32 route)
+    of G decoder calls on the bf16 route: ``in_relu`` twice and
+    ``phase_head`` once a forward run by the host.  A call that captures
+    the decoder's CUDA graph runs it twice (a warm-up and the capture,
+    ``utils/cuda_graphs.py``), an eager call once, and a replay of the
+    graph not at all.  On the card a capturing call launches as many (the
+    warm-up's, then the first replay's), a replaying call one forward's."""
+    n = 2 * captures + eager
+    return (2 * n, n, 0)
+
+
 def bf16_tolerance_ok(got, ref) -> tuple[float, bool]:
     """bf16: the kernel and the plain version round the same f32 statistics
     and sums, taken in another order, to bf16, so an element may land one
@@ -385,13 +397,22 @@ def phase_main_path(torch, launches, card: str):
     for style, words in requests:
         before = counts()
         outs.append(run(style, encode_labels(words, cfg.output_max_len)))
-        if tuple(a - b for a, b in zip(counts(), before)) != (2, 1, 0):
-            raise AssertionError("a bf16 generate call did not launch "
-                                 "in_relu twice and phase_head once, on "
-                                 "its wgmma route")
+        # each request meets a new signature: the decoder's capture
+        got = tuple(a - b for a, b in zip(counts(), before))
+        if got != dec_launches(captures=1):
+            raise AssertionError(f"a bf16 generate call launched {got}, not "
+                                 f"{dec_launches(captures=1)} (a capture "
+                                 "of the decoder on its wgmma route)")
     torch.cuda.synchronize()
     launches["in_relu"], launches["phase_head"], launches["phase_head_f32"] \
         = counts()
+    # a second request of a size replays: the host launches neither kernel
+    before = counts()
+    run(requests[0][0], encode_labels(requests[0][1], cfg.output_max_len))
+    got = tuple(a - b for a, b in zip(counts(), before))
+    if got != dec_launches():
+        raise AssertionError(f"a repeated bf16 request launched {got}, not "
+                             "a replay of the decoder's graph")
     log(f"  launches over {len(requests)} requests: in_relu "
         f"{launches['in_relu']}, phase_head wgmma route "
         f"{launches['phase_head']}, f32 route {launches['phase_head_f32']}")
@@ -702,9 +723,10 @@ def phase_train(torch, card: str):
     log(f"  eval step: losses { {k: float(v) for k, v in em.items()} }, "
         f"launches in_relu {eval_counts[0]}, phase_head wgmma "
         f"{eval_counts[1]}, f32 {eval_counts[2]}")
-    if eval_counts != (4, 2, 0):
-        raise AssertionError("an eval step did not launch in_relu 4 times "
-                             "and phase_head twice on its wgmma route")
+    if eval_counts != dec_launches(captures=1):
+        raise AssertionError(f"an eval step launched {eval_counts}, not "
+                             f"{dec_launches(captures=1)} (a capture of the "
+                             "decoder on its wgmma route)")
     if not all(math.isfinite(float(v)) for v in em.values()):
         raise AssertionError("non-finite eval losses")
 
@@ -853,9 +875,13 @@ def phase_trainer_runtime(torch, card: str, tmp: str):
         ck = os.listdir(f"{logdir}/ckpt")
         if not {"latest", "step_00000001", "best"} <= set(ck):
             raise AssertionError(f"checkpoints {sorted(ck)}")
-        if [(cnt, n) for _, cnt, n in timed.evals] != [((8, 4, 0), 2)] * 2:
+        # each eval follows a train epoch, whose train() dropped the
+        # decoder's graph: its first batch captures, the second replays
+        if [(cnt, n) for _, cnt, n in timed.evals] \
+                != [(dec_launches(captures=1), 2)] * 2:
             raise AssertionError(f"eval launches and batches {timed.evals}: "
-                                 "not in_relu 4 and phase_head 2 a batch")
+                                 "not one capture of the decoder over 2 "
+                                 "batches")
         if any(cnt != (0, 0, 0) for _, cnt, _ in timed.epochs):
             raise AssertionError(f"a train epoch launched a forward-only "
                                  f"kernel: {[c for _, c, _ in timed.epochs]}")
@@ -937,9 +963,10 @@ def phase_trainer_runtime(torch, card: str, tmp: str):
                     or ids.max() >= VOCAB.size:
                 raise AssertionError(f"beam ids {ids.shape} in "
                                      f"[{ids.min()}, {ids.max()}]")
-            if launched != (2, 1, 0):
+            if launched != dec_launches(captures=1):
                 raise AssertionError(f"a generate_word call launched "
-                                     f"{launched}, not 2 + 1")
+                                     f"{launched}, not one capture of the "
+                                     "decoder")
             reads[tag] = [_until_end(r, VOCAB.end) for r in ids.tolist()]
             loop = res["seconds"]
             key = "warm_up" if tag == "warm-up" else f"beam{beam}"
@@ -1069,10 +1096,11 @@ def phase_encoders(torch, card: str, counts, zero):
                 or float(img.abs().max()) > 1:
             raise AssertionError(f"{name}: images {tuple(images.shape)} not "
                                  "finite or outside [-1, 1]")
-        if launched != (2, 1, 0):
+        if launched != dec_launches(captures=1):
             raise AssertionError(f"{name}: a generate call launched "
-                                 f"{launched}, not in_relu 2 and phase_head "
-                                 "1 on its wgmma route")
+                                 f"{launched}, not {dec_launches(captures=1)}"
+                                 " (a capture of the decoder on its wgmma "
+                                 "route)")
         run(style, labels)
         walls = []
         for _ in range(5):
@@ -1194,11 +1222,14 @@ def phase_quality_report(torch, tmp: str, counts, zero):
     if not math.isfinite(report["fid_random_features"]):
         raise AssertionError(f"fid {report['fid_random_features']}")
     w = QUALITY_WRITERS
-    calls = report["cer"]["count"] // w // 64 + (
-        report["cer"]["count"] // w % 64 > 0)
-    if launched != (2 * w * calls, w * calls, 0):
+    n = report["cer"]["count"] // w
+    calls = n // 64 + (n % 64 > 0)
+    # one capture of the decoder a batch size (64 and the rest), replayed
+    # for every other call
+    sizes = len({min(64, n - 64 * i) for i in range(calls)})
+    if launched != dec_launches(captures=sizes):
         raise AssertionError(f"quality_report launched {launched} for "
-                             f"{w * calls} generate calls")
+                             f"{w * calls} generate calls of {sizes} sizes")
     n_real = len(os.listdir(real_dir))
     log(f"  quality_report: {wall:.3f} s wall; {report['cer']['count']} "
         f"generated and {n_real} real words; cer {report['cer']['cer']:.3f}"
@@ -1351,7 +1382,7 @@ def phase_trocr(torch, card: str, tmp: str, counts, zero):
                                          if k != "label_ch0"})
     torch.cuda.synchronize()
     eval_counts = counts()
-    if eval_counts != (4, 2, 0) or not all(
+    if eval_counts != dec_launches(captures=1) or not all(
             math.isfinite(float(v)) for v in em.values()):
         raise AssertionError(f"eval step with TrOCR: launches "
                              f"{eval_counts}, losses {em}")
@@ -1374,7 +1405,8 @@ def phase_trocr(torch, card: str, tmp: str, counts, zero):
         torch.cuda.synchronize()
         req.append(time.perf_counter() - t)
         req_counts = counts()
-    if req_counts != (2, 1, 0) or tuple(ids.shape) != (64, 11) or \
+    # after the warm call the decoder replays: no kernel launched by the host
+    if req_counts != dec_launches() or tuple(ids.shape) != (64, 11) or \
             not bool(torch.isfinite(images.float()).all()):
         raise AssertionError(f"TrOCR request: launches {req_counts}, ids "
                              f"{tuple(ids.shape)}")
@@ -1424,8 +1456,8 @@ def phase_teacher(torch, card: str, counts, zero):
             seconds = time.perf_counter() - t
             calls = stats["used_batches"] + stats["skipped_small_batches"]
             c = counts()
-            per_call.add(tuple(v // calls for v in c))
-            if calls != 4 or any(v % calls for v in c):
+            per_call.add(c)
+            if calls != 4:
                 raise AssertionError(f"teacher phase: {calls} generate "
                                      f"calls, launches {c}")
             after = snapshot(torch, state)["rec"]
@@ -1437,14 +1469,16 @@ def phase_teacher(torch, card: str, counts, zero):
                 raise AssertionError(f"teacher phase at threshold 0 did not "
                                      f"train R: {stats}, moved {moved}")
             log(f"  {name} at conf_threshold {threshold}: {stats} in "
-                f"{seconds:.3f} s; R moved: {moved}; launches a generate "
-                f"call {tuple(v // calls for v in c)}")
+                f"{seconds:.3f} s; R moved: {moved}; launches over "
+                f"{calls} generate calls {c}")
             out[f"{name}@{threshold}"] = dict(stats, seconds=seconds,
                                               r_moved=moved)
-    if per_call != {(2, 1, 0)}:
-        raise AssertionError(f"a teacher-phase generate call launched "
-                             f"{per_call}, not in_relu 2 and phase_head 1")
-    return {"runs": out, "launches_generate_call": [2, 1, 0]}
+    # each run puts G back in train mode, which drops the decoder's graph:
+    # its first generate call captures, the other three replay
+    if per_call != {dec_launches(captures=1)}:
+        raise AssertionError(f"a teacher phase's 4 generate calls launched "
+                             f"{per_call}, not one capture of the decoder")
+    return {"runs": out, "launches_4_generate_calls": list(*per_call)}
 
 
 def phase_htr(torch, card: str):
@@ -1628,10 +1662,13 @@ def phase_int8(torch, card: str, counts, zero):
     run(style, labels)
     torch.cuda.synchronize()
     launched = counts()
-    if launched != (2, 1, 0):
+    if launched != dec_launches(eager=1):
         raise AssertionError(f"an int8 generate call launched {launched}, "
-                             "not in_relu 2 and phase_head 1 (wgmma)")
+                             "not in_relu 2 and phase_head 1 (wgmma): the "
+                             "decoder eager")
     out["launches_int8_generate_call"] = list(launched)
+    run.base(style, labels)         # the float path's decoder graph
+    zero()
     walls = {"int8": [], "bf16": []}
     for _ in range(10):
         for k, fn in (("int8", run), ("bf16", run.base)):
@@ -1640,6 +1677,12 @@ def phase_int8(torch, card: str, counts, zero):
             fn(style, labels)
             torch.cuda.synchronize()
             walls[k].append(time.perf_counter() - t)
+    # the int8 calls run the decoder eager, and the bf16 calls between
+    # them replay its graph: none captures again
+    if counts() != dec_launches(eager=10):
+        raise AssertionError(f"10 int8 and 10 bf16 requests in turns "
+                             f"launched {counts()}, not "
+                             f"{dec_launches(eager=10)}")
     for k in walls:
         ms = statistics.median(walls[k]) * 1e3
         out[f"{k}_request_ms"], out[f"{k}_imgs_per_s"] = ms, b / (ms / 1e3)
@@ -2570,7 +2613,8 @@ def phase_entry_and_benches(torch, counts, zero):
     images = fn(*args)
     torch.cuda.synchronize()
     c = counts()
-    if tuple(images.shape) != (8, 64, 216, 1) or c != (2, 1, 0) or \
+    if tuple(images.shape) != (8, 64, 216, 1) or \
+            c != dec_launches(captures=1) or \
             not bool(torch.isfinite(images.float()).all()):
         raise AssertionError(f"entry(): {tuple(images.shape)}, launches {c}")
     log(f"  entry(): images {tuple(images.shape)} {images.dtype}, launches "
@@ -3009,11 +3053,14 @@ def phase_profilers(torch, card: str, counts, zero, kernel_rows) -> dict:
         if row["device"].split(" (")[0] != torch.cuda.get_device_name(0) or \
                 not (0 < row["mfu"] < 1 and 0 < row["hbm_frac"]):
             raise AssertionError(f"profiler row {row}")
-    # calls of the stage in one CLI call: a warm call, the 10-call stream
-    # and the counted call; profile_pipeline also generates the images
-    # its R stages read
-    calls = {"launches_profile_gen_upchain": 12,
-             "launches_profile_pipeline_generate": 13}
+    # the decoder forwards the host runs in one CLI call: ``up_chain`` is
+    # eager in its warm call, the 10-call stream and the counted call;
+    # profile_pipeline's generate stage captures the decoder's graph once
+    # and replays it, but for the counted call, which runs eager under the
+    # op counters
+    want = {"launches_profile_gen_upchain": list(dec_launches(eager=12)),
+            "launches_profile_pipeline_generate": list(
+                dec_launches(captures=1, eager=1))}
     zero()
     profile_gen.main(["--batch", "256", "--n-stream", "10", "--stages",
                       "upchain"])
@@ -3022,9 +3069,9 @@ def phase_profilers(torch, card: str, counts, zero, kernel_rows) -> dict:
     profile_pipeline.main(["--batch", "256", "--n-stream", "10",
                            "--stages", "generate"])
     out["launches_profile_pipeline_generate"] = list(counts())
-    for key, n in calls.items():
-        if out[key] != [2 * n, n, 0]:
-            raise AssertionError(f"{key}: {out[key]}, not {[2 * n, n, 0]}")
+    for key, n in want.items():
+        if out[key] != n:
+            raise AssertionError(f"{key}: {out[key]}, not {n}")
     gen = build_generator(default_config(), seed=SEED)
     x = torch.randn(256, 512, 8, 27, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(SEED)
@@ -3134,9 +3181,9 @@ def _mesh_serve(torch, rank: int, card: str) -> dict:
     images, ids = run(style, labels)
     torch.cuda.synchronize()
     launches = counts()
-    if launches != (2, 1, 0):
+    if launches != dec_launches(captures=1):
         raise AssertionError(f"rank {rank}: a sharded call launched "
-                             f"{launches}, not in_relu 2, phase_head 1")
+                             f"{launches}, not one capture of the decoder")
     ref_img, ref_ids = run.base(style, labels)        # whole batch, 1 rank
     err, ok = bf16_tolerance_ok(images, ref_img)
     flips = float((ids != ref_ids).float().mean())
@@ -3409,7 +3456,7 @@ def phase_mesh_world1(torch, card: str, tmp: str, counts, zero) -> dict:
         got = run(style, labels)
         torch.cuda.synchronize()
         launches = counts()
-        if launches != (2, 1, 0):
+        if launches != dec_launches(captures=1):
             raise AssertionError(f"the 1x1 sharded call launched {launches}")
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
             raise AssertionError("the 1x1 sharded call differs from the "
@@ -3566,8 +3613,14 @@ def _stage_outputs(torch, run, style, labels) -> dict:
     encoder, text encoder, mix, res blocks, upsample convs and their
     IN + ReLU (the next module's input), head; R's trunk, BiGRU outputs
     (not its final states, which are layer-major), logits; the greedy
-    ids."""
+    ids.  The decoder's graphs are dropped first: its submodules' hooks
+    fire in the warm-up and capture of a new graph (the capture's outputs,
+    which the replay that follows writes again), never in a replay, and a
+    capture takes the current cuDNN settings."""
+    from affganwriting_torch.utils.cuda_graphs import drop_graphs
+
     gen, rec = run.gen, run.rec
+    drop_graphs(gen.dec)
     out, hooks = {}, []
 
     def keep(name, what):
@@ -3888,8 +3941,8 @@ def main() -> int:
         row["launches_int8_generate_call"] = \
             int8["launches_int8_generate_call"][key]
         row["launches_line_path"] = line["launches"][key]
-        row["launches_teacher_generate_call"] = \
-            teacher["launches_generate_call"][key]
+        row["launches_teacher_4_generate_calls"] = \
+            teacher["launches_4_generate_calls"][key]
         row["launches_sharded_call_world1"] = \
             mesh1["launches_sharded_call"][key]
         row["launches_sharded_call_per_rank"] = [

@@ -3,11 +3,13 @@
 
 On the CPU: which calls replay (eval mode, grad off, no dispatch mode, a
 CUDA input) and which stay eager; the graph cache (signatures, least recently used out,
-dropped by ``train()`` and ``.to()``); hooks on the encoder firing once a
-call; outputs kept across calls; the capture and replay spans.  The CPU
-has no CUDA graphs, so the cache tests stand a CPU graph in for the
-captured one (``CpuGraph``): it runs the real replay path (copy in, replay,
-clone out), its replay recomputing the forward into the static outputs.
+dropped by ``train()`` then ``eval()`` and ``.to()``); hooks on the encoder
+firing once a call; outputs kept across calls; the capture and replay
+spans of a request, the decoder's beside the encoder's.  The CPU has no
+CUDA graphs, so the cache tests stand a CPU graph in for the captured one
+(``CpuGraph``, which ``test_torch_decoder_graph.py`` shares): it runs the
+real static inputs and replay path (copy in, replay, clone out), its
+replay recomputing the forward into the static outputs.
 
 On the card (``card``; skips without one): every registered encoder at
 the serving shape, and ``Generator.encode_style`` as ``generate_images``
@@ -20,6 +22,7 @@ file imports no JAX; on the card:
 
 import json
 import types
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -67,23 +70,30 @@ def nchw(stack, dev="cpu"):
     return torch.as_tensor(stack, device=dev).permute(0, 3, 1, 2)
 
 
+def as_list(out):
+    return [out] if isinstance(out, torch.Tensor) else list(out)
+
+
 class CpuGraph(cuda_graphs._Graph):
-    """A CPU stand-in for the captured graph: ``_Graph``'s own replay
-    (copy in, replay, clone out), the replay recomputing the forward from
-    the static input into the static outputs, as the graph's kernels do."""
+    """A CPU stand-in for the captured graph: ``_Graph``'s own static
+    inputs and replay (copy in, replay, clone out), the capture running the
+    forward once and the replay recomputing it from the static inputs into
+    the static outputs, as the graph's kernels do, with the program's spans
+    off, as a replay opens none inside."""
 
     captures = 0
 
-    def __init__(self, forward, x):
+    def _capture(self, forward):
         type(self).captures += 1
-        self.input = torch.empty_like(x)
-        self.input.copy_(x)
-        self.outputs = forward(self.input)
 
         def replay():
-            for out, new in zip(self.outputs, forward(self.input)):
-                out.copy_(new)
+            with mock.patch.object(torch.autograd, "_profiler_enabled",
+                                   lambda: False):
+                new = forward(*self.args)
+            for out, n in zip(as_list(self.outputs), as_list(new)):
+                out.copy_(n)
         self.graph = types.SimpleNamespace(replay=replay)
+        return forward(*self.args)
 
 
 @pytest.fixture
@@ -157,17 +167,17 @@ def test_replays_each_signature_and_keeps_the_newest(gen, as_card):
         got = [enc(a), enc(b), enc(a)]
         assert CpuGraph.captures == 1
         assert cuda_graphs.signatures(enc) == [
-            ((1, 50, 32, 104), a.stride(), torch.float32, a.device)]
+            (((1, 50, 32, 104), a.stride(), torch.float32, a.device),)]
         # a contiguous input and batches of 2, 3 and 4: other signatures
         others = [a.contiguous()] + [torch.cat([b] * n) for n in (2, 3, 4)]
         for x in others:
             enc(x)
         assert CpuGraph.captures == 5
         sigs = cuda_graphs.signatures(enc)
-        assert len(sigs) == cuda_graphs.MAX_GRAPHS
-        assert (a.shape, a.stride()) not in [s[:2] for s in sigs]  # oldest
+        assert len(sigs) == type(enc).MAX_GRAPHS == 4
+        assert (a.shape, a.stride()) not in [s[0][:2] for s in sigs]  # oldest
         enc(others[1])                                   # used: newest
-        assert cuda_graphs.signatures(enc)[-1][0] == (2, 50, 32, 104)
+        assert cuda_graphs.signatures(enc)[-1][0][0] == (2, 50, 32, 104)
         assert CpuGraph.captures == 5
     for out, want in zip(got, (want_a, want_b, want_a)):
         assert all(torch.equal(g, w) for g, w in zip(out, want))
@@ -252,16 +262,24 @@ def test_a_request_opens_capture_then_replay_spans(as_card, tmp_path):
     args = (stacks(cfg, 1)[0], encode_labels(WORDS, cfg.output_max_len))
     first, spans1 = program_spans(run, args, tmp_path / "1.json")
     second, spans2 = program_spans(run, args, tmp_path / "2.json")
-    assert CpuGraph.captures == 1
-    for spans, inner in ((spans1, ["G.encode_style.capture",
-                                   "G.encode_style.replay"]),
-                         (spans2, ["G.encode_style.replay"])):
+    assert CpuGraph.captures == 2         # the encoder's and the decoder's
+    # the decoder's replay stands for its three spans, which open in its
+    # capture
+    dec_spans = ["G.dec.res", "G.dec.up", "G.dec.head"]
+    for spans, inner, count in ((spans1, ["G.encode_style.capture",
+                                          "G.encode_style.replay"], 17),
+                                (spans2, ["G.encode_style.replay"], 12)):
         names = [n for _, _, n in spans]
-        assert len(names) == 13 + len(inner)
+        assert len(names) == count
         (s0, e0, _), = [sp for sp in spans if sp[2] == "G.encode_style"]
         held = [n for s, e, n in spans if s0 <= s and e <= e0
                 and n != "G.encode_style"]
         assert held == inner
+        (s0, e0, _), = [sp for sp in spans if sp[2] == "G.dec"]
+        held = [n for s, e, n in spans if s0 <= s and e <= e0
+                and n != "G.dec"]
+        assert held == (["G.dec.capture", *dec_spans, "G.dec.replay"]
+                        if count == 17 else ["G.dec.replay"])
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
