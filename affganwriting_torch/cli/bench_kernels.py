@@ -14,8 +14,8 @@ at (one writer's 256 words), and the kernel rows there are at that batch.  The b
 function must move (each input read once, each output written once) over
 the card's memory rate and its operations over the peak rate for their
 type (``tools/timing.py:CARD_PEAKS``).  Prints one JSON line per shape;
-``kernel_times`` returns the rows that ``chip_smoke.py`` (phase 5) reports.
-Needs the card.
+these are the kernels' times that ``PERF.md`` §6 reports, and ``main``
+returns them.  Needs the card.
 """
 
 from __future__ import annotations

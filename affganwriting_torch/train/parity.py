@@ -1,9 +1,12 @@
-"""The one-step parity check of the train step and its limits.
+"""The one-step parity check of the train step, its limits, and the f64
+reference that the gradient checks rest on.
 
 ``tests/test_torch_train_step.py`` holds the port's merged step against the
-JAX package's with it on the CPU, and ``chip_smoke.py`` (phase 6) holds the
+JAX package's with it on the CPU, and ``chip_smoke.py`` (phase 6a) holds the
 port on the card against the port on the CPU, so both read the same
-configuration and the same limits from here.
+configuration and the same limits from here.  ``in_f64`` runs the port's
+modules in f64: the tests' exact reference and the on-card smoke's
+(phases 12a and 13a/b).
 
 The configuration has the native 64x216 geometry (D and C at 6 layers end
 at 2x7) at small widths, fp32, SGD: a delta is the learning rate times the
@@ -27,6 +30,7 @@ tests/test_torch_train_step.py`` prints these readings.
 
 from __future__ import annotations
 
+import contextlib
 from collections.abc import Mapping
 
 import torch
@@ -78,3 +82,25 @@ def delta_errors(got: Mapping[str, torch.Tensor],
 def delta_ok(name: str, l2: float, per_leaf: Mapping[str, float]) -> bool:
     l2_tol, leaf_tol = DELTA_TOL[name]
     return l2 <= l2_tol and max(per_leaf.values()) <= leaf_tol
+
+
+@contextlib.contextmanager
+def in_f64(*modules):
+    """The port's ``modules`` compute in f64 inside the block: parameters,
+    compute dtypes, and every ``.float()`` they take; the exact reference
+    that the f32 gradient checks of the tests and of the on-card smoke
+    rest on."""
+    for module in modules:
+        module.double()
+        for m in module.modules():
+            for attr in ("compute_dtype", "dtype"):
+                if getattr(m, attr, None) is torch.float32:
+                    setattr(m, attr, torch.float64)
+    as_f32 = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **k: self.double()
+    torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = as_f32
+        torch.set_default_dtype(torch.float32)

@@ -1,6 +1,8 @@
 """On-card smoke of the PyTorch/CUDA port: builds the kernels, holds each
-against its plain PyTorch version, serves the main path at full width and
-times it.
+against its plain PyTorch version and the port on the card against the
+port on the CPU, and drives every path of the port at full width with its
+launch counts checked.  It times nothing: ``benchmark/run.py`` times the
+port, and ``python -m affganwriting_torch.cli.bench_kernels`` the kernels.
 
     python3 chip_smoke.py
 
@@ -8,7 +10,8 @@ Needs one CUDA card (H100, ``sm_90a``) and ``nvcc``; with no card it exits
 non-zero before printing any result.  Phases, each fatal on failure:
 
 1. device and build: card, versions, ``nvidia-smi`` name and power limit;
-   builds ``affganwriting_torch/csrc/*.cu`` and prints the build seconds;
+   builds ``affganwriting_torch/csrc/*.cu`` and prints ``ptxas``'s
+   registers and spills;
 2. kernel parity at the main path's shapes (batch 64), f32 and bf16,
    including ReLU off and a duplicated plane; ``phase_head`` on both
    routes (f32: the CUDA-core kernel, 1e-4; bf16: the wgmma kernel,
@@ -21,48 +24,37 @@ non-zero before printing any result.  Phases, each fatal on failure:
 4. main path: ``default_config()`` (resnet50 G, seq2seq R, 64x216, bf16),
    random weights from a seed, three requests (1 writer x 256 words,
    1 x 8, 2 x 8) with the launch counters set to 0 just before and read
-   just after, each generate call checked to launch ``in_relu`` twice and
-   ``phase_head`` once on its wgmma route; then the 256-word request
-   timed, each stage's device time, and one ``torch.profiler`` trace
-   (kernel time, idle share, top kernels);
-5. kernel times beside the plain version, one library call and the card's
-   bound (CUDA events, 20 launches per event pair): ``in_relu`` at batch
-   256, ``phase_head`` at batch 256 and 8;
+   just after, each generate call checked to capture the decoder on its
+   wgmma route, and a repeated request to replay it;
+5. none: the kernels' times are ``cli/bench_kernels``'s to print;
 6. train: one merged step of the port on the card vs on the CPU (small
    fp32 config: losses, fakes, every player's delta, G's and R's new
    running statistics); then ``default_config()`` at full width (bf16,
-   Adam, batch 8): 3 warm-up and 10 timed steps with finite losses, all
-   four players moved, G's and R's running statistics moved and R's not in
-   the G phase, no kernel launched by a train step; step time, words/s,
-   per-phase device time, peak memory and one traced step; one eval step,
-   which must launch ``in_relu`` 4 times and ``phase_head`` twice; one
-   4-phase step; the merged step at batch 64;
+   Adam, batch 8): 13 steps with finite losses, all four players moved,
+   G's and R's running statistics moved and R's not in the G phase, no
+   kernel launched by a train step; one eval step, which must capture the
+   decoder; two 4-phase steps; two merged steps at batch 64;
 7. trainer runtime at ``default_config()``: ``cli/train_word`` for 2 epochs
    of 16 writers (JSONL lines finite, ``latest``, ``step_00000001`` and
-   ``best`` written, ``in_relu`` 4 and ``phase_head`` 2 launches per eval
-   batch, none in the train steps), a resume on the same logdir that must
+   ``best`` written, one capture of the decoder per eval over 2 batches,
+   no launch in the train epochs), a resume on the same logdir that must
    be bit-equal to the last save (Adam moments and R's rate included) and
-   train one more epoch, ``cli/generate_word`` from ``best`` greedily as a
-   warm-up, then with beams of 3 and 1 and greedily (17 files each, 2 + 1
-   launches a call, the width-1 beam reading as the greedy path),
-   ``cli/inspect_ckpt``; epoch, eval, checkpoint save and load times and
-   sizes, a batch's upload, the CER pass and the data stream alone,
-   generate_word words/s;
+   train one more epoch, ``cli/generate_word`` from ``best`` with beams of
+   3 and 1 and greedily (17 files each, one capture of the decoder a call,
+   the width-1 beam reading as the greedy path), ``cli/inspect_ckpt``;
 8. evaluation and the other style encoders: (a) on a small fp32 config,
    each of the eight new encoders' pyramids, ``InceptionV3Pool3``'s
    activations and ``FIDScorer``'s random features on the card against the
    CPU (1e-3 of max(1, |CPU|)); (b) each encoder at full width
    (``default_config().replace(style_encoder=...)``, bf16): one request of
    1 writer x 64 words through ``make_generate_and_read_fn`` (images finite,
-   in [-1, 1], ``in_relu`` 2 and ``phase_head`` 1 launches on its wgmma
-   route), request ms, parameters and peak memory, then merged train
-   steps at batch 8 (losses finite, all four players moved, efficientnet's
-   running statistics moved, inception's bit-unchanged in the first; 3
-   more timed);
+   in [-1, 1], one capture of the decoder on its wgmma route), then four
+   merged train steps at batch 8 (losses finite, all four players moved in
+   the first, efficientnet's running statistics moved, inception's
+   bit-unchanged);
    (c) ``cli/quality_report`` on phase 7's ``best`` (2 writers, 64 real
    words each): its keys, ``cer`` equal to ``cer_of_folder``, a finite
-   ``fid_random_features``, the seconds of each part, the kernel launches,
-   and the activation pass alone (ms an image over 512 crops);
+   ``fid_random_features``, the kernel launches;
    (d) ``cli/evaluate`` on the same folders, with and without
    ``--per-writer``;
 9. TrOCR, the teacher phase, HTR, entry and benches, TrOCR in f32
@@ -70,39 +62,34 @@ non-zero before printing any result.  Phases, each fatal on failure:
    and the gradient into the images (1e-4 of max(1, |CPU|) and of the
    largest gradient entry); (b) ``train_word --recognizer trocr
    --trocr-preset base`` at ``default_config()`` (TrOCR base, random
-   weights from the seed, frozen): 3 warm-up and 5 timed merged steps at
-   batch 8 (losses finite, TrOCR bit-unchanged, G moved, no kernel), step
-   ms, words/s and peak memory, one eval step (4 + 2 launches) and a 1 x
-   64-word request (2 + 1 launches); (c) ``run_teacher_phase`` over 4
-   batches of 8 with the on-device TrOCR teacher (base) and with
-   ``SelfTeacher`` (beam 3), each at ``conf_threshold`` 0.6 and 0.0 (there
-   R must move, the losses be finite and every batch be used), every
-   generate call launching ``in_relu`` twice and ``phase_head`` once;
+   weights from the seed, frozen): 8 merged steps at batch 8 (losses
+   finite, TrOCR bit-unchanged, G moved, no kernel), one eval step (a
+   capture of the decoder) and a 1 x 64-word request (a replay); (c)
+   ``run_teacher_phase`` over 4 batches of 8 with the on-device TrOCR
+   teacher (base) and with ``SelfTeacher`` (beam 3), each at
+   ``conf_threshold`` 0.6 and 0.0 (there R must move, the losses be finite
+   and every batch be used), one capture of the decoder a run;
    (d) ``HTRTrainer``: one epoch of 10 steps at batch 32 on synthetic words
-   with ``marcal_augment``, teacher rate 0.5 (loss finite, R moved), ms a
-   step and the augmentation's host ms a batch; (e) ``entry()`` once
-   (images (8, 64, 216, 1), 2 + 1 launches), ``cli/bench --batch 256
-   --quick`` and ``cli/bench_kernels --batch 256``, each printing its JSON
-   lines;
+   with ``marcal_augment``, teacher rate 0.5 (loss finite, R moved); (e)
+   ``entry()`` once (images (8, 64, 216, 1), a capture of the decoder),
+   ``cli/bench --batch 256 --quick`` and ``cli/bench_kernels --batch
+   256``, each printing its JSON lines;
 10. w8a8 serving at ``default_config()`` (random weights, 1 writer x 256
-   words): (a) calibration timed (R's trunk on one bf16 batch, G's seven
-   sites on the request), the int8 route against the bf16 route under the
-   JAX package's gates (trunk features correlation > 0.98 and relative
-   error < 0.2, the static and dynamic decoders' images correlation >
-   0.99), 23 ``torch._int_mm`` calls a request (no int8 conv as a float
-   conv), ``int8_conv``'s int32 sums on the card bit-equal to the CPU's at
-   three trunk layer shapes and G's ``res0.conv0``; (b) the int8 and bf16
-   requests in turns (median of 10), device ms of ``G.generate`` and the
-   trunk in each, the int8 generate call's launches (``in_relu`` 2,
-   ``phase_head`` 1), peak memory, one traced int8 request; (c)
+   words): (a) calibration, the int8 route against the bf16 route under
+   the JAX package's gates (trunk features correlation > 0.98 and
+   relative error < 0.2, the static and dynamic decoders' images
+   correlation > 0.99), 23 ``torch._int_mm`` calls a request (no int8 conv
+   as a float conv), ``int8_conv``'s int32 sums on the card bit-equal to
+   the CPU's at three trunk layer shapes and G's ``res0.conv0``; (b) the
+   int8 generate call's launches (the decoder eager), and 10 int8 and 10
+   bf16 requests in turns, none capturing again; (c)
    ``tools/ab_int8_static`` and ``cli/bench --headline int8 --batch 256
    --quick``; (d) ``tools/ab_int8_cer`` on phase 7's ``best``;
 11. the line models: (a) a small f32 ``HWWithStyle`` on the card against
    the CPU, ``char_style_dim`` 0 and 16; (b) ``HWWithStyle`` at its
    published widths with ``cf_synth_charSpecMulti``'s ``char_style_dim``
    16 and ``max_gen_length`` 128: ``extract_style`` of 16 lines of 64 x 512
-   (``a_batch_size`` 2) and ``generate`` of 16 lines, medians of 5, peak
-   memory, parameters, no kernel launched;
+   (``a_batch_size`` 2) and ``generate`` of 16 lines, no kernel launched;
 12. the line GAN: (a) each lesson step (count, auto, auto-gen, no-step
    gen, gen, disc, valid) of a small f32 ``LineGanTrainer`` on the card
    against the CPU from one state (losses, the updated main tree and D,
@@ -110,17 +97,16 @@ non-zero before printing any result.  Phases, each fatal on failure:
    hands its optimizer, per leaf against the CPU's f64, ``LINE_GRAD_TOL``
    plus twice the CPU's own f32 gap, ``grad_check``); (b)
    ``LineGanTrainer`` at the published widths with
-   ``cf_synth_charSpecMulti`` (4 lines of 64 x 512): a warm-up rotation of
-   the seven-lesson curriculum and two timed ones (median ms per lesson),
-   ``validate``, peak memory, parameter counts;
+   ``cf_synth_charSpecMulti`` (4 lines of 64 x 512): three rotations of
+   the seven-lesson curriculum, ``validate``, parameter counts;
    losses finite, the HWR, its BatchNorm statistics and the AE
    bit-unchanged, D's ``u`` moved, the no-step stash consumed at auto-gen,
    no kernel launched; (c) ``cli/train_line --config
    configs/cf_synth_charSpecMulti.json`` for 7 iterations, the checkpoint
    restored bit for bit (Adam, SWA, iteration), 2 more iterations resumed,
    ``validate``, ``cli/get_styles --ckpt``, ``generate_lines`` of 16 texts
-   (median of 5, no kernel launched), ``serve/app.py --selftest --ckpt``
-   (PNG decoded back to the same page);
+   (no kernel launched), ``serve/app.py --selftest --ckpt`` (PNG decoded
+   back to the same page);
 13. line pretraining, the IAM line data, line evaluation, the REPL and
    the profilers, f32 with TF32 off: (a) ``cli/train_hwr``'s step
    (``CNNOnlyHWR``, BatchNorm, 80 classes, 8 lines of 64 x 512) on the
@@ -140,26 +126,24 @@ non-zero before printing any result.  Phases, each fatal on failure:
    ``cli/profile_gen --batch 256`` (10-call streams) with their JSON
    lines, the kernels' launches in one ``profile_gen --stages upchain``
    and one ``profile_pipeline --stages generate`` call, and one
-   ``up_chain`` call traced by ``torch.profiler`` (``in_relu`` twice,
-   ``phase_head`` once).
+   ``up_chain`` call in ``utils/profiling.trace`` (``in_relu`` twice,
+   ``phase_head`` once by name) and under ``work_counter``.
 
 14. multi-device (``parallel/``) on the one card: (a) NCCL at world 1,
    ``default_config()``, 1 writer x 256 words through
    ``make_sharded_pipeline`` on a 1x1 mesh, bit-equal to the unsharded
-   call (in_relu 2, phase_head 1 launches, added to the kernels line), and
+   call (one capture of the decoder, added to the kernels line), and
    ``generate_word --mesh auto`` under ``torch.distributed.run`` writing
    the files of ``--mesh none``; (b) two processes sharing the card over
    gloo (NCCL takes one card a rank): the sharded pipeline at data=2, 128
    words a rank, against the unsharded call (``bf16_tolerance_ok``, 2% of
    tokens), the kernels at the rank's shapes (``phase_head`` at its batch
-   128 strip height) against their plain versions, CUDA-event times per
-   rank; (c) the word step at full width (batch 8, f32, SGD, TF32 off,
-   R's dropout 0) on data=2 and on 1x2 against one process's step
-   (``MESH_STEP_*`` plus twice the one-process step's own spread with the
-   batch's rows reversed); (d) an
+   128 strip height) against their plain versions; (c) the word step at
+   full width (batch 8, f32, SGD, TF32 off, R's dropout 0) on data=2 and
+   on 1x2 against one process's step (``MESH_STEP_*`` plus twice the
+   one-process step's own spread with the batch's rows reversed); (d) an
    auto and a disc lesson of ``LineGanTrainer`` at its published widths,
-   2 lines a rank, against one process's (``MESH_LINE_*``).  Two processes
-   time-slicing one card say nothing about scaling.
+   2 lines a rank, against one process's (``MESH_LINE_*``).
 15. batch invariance at ``default_config()``: (a) ``in_relu`` at its two
    shapes and ``phase_head`` on xp (256, 256, 36, 112), f32 and bf16, on
    rows 0-63 alone and inside batch 256, which must be bit-equal
@@ -169,11 +153,12 @@ non-zero before printing any result.  Phases, each fatal on failure:
    ``cudnn.deterministic`` setting (restored after), the max|diff| of rows
    0-63 at every stage (style encoder, text encoder, mix, res blocks,
    upsample convs and their IN + ReLU, head, R's trunk, BiGRU, logits), the
-   first that differs and the ids that flip; (c) ``cli/bench_kernels
-   --iters 5``; (d) ``tools/ab_subpixel_quality`` on phase 7's ``best``
-   (2 + 1 epochs: not trained), so phase 7's logdir now lives until here.
+   first that differs and the ids that flip; (d)
+   ``tools/ab_subpixel_quality`` on phase 7's ``best`` (2 + 1 epochs: not
+   trained), so phase 7's logdir lives until here.
 
-Each phase prints its seconds.  The last lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
+Each phase prints its seconds.  The last lines are the ``kernels`` JSON
+(launch counts, parity errors, ``ptxas``), the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -184,7 +169,6 @@ import json
 import math
 import re
 import shutil
-import statistics
 import sys
 import tempfile
 import time
@@ -367,7 +351,7 @@ def phase_reference(torch):
         raise AssertionError("recognizer on the card disagrees with the CPU")
 
 
-def phase_main_path(torch, launches, card: str):
+def phase_main_path(torch, launches):
     import numpy as np
 
     from affganwriting_torch.core.config import default_config
@@ -379,10 +363,7 @@ def phase_main_path(torch, launches, card: str):
     from affganwriting_torch.ops.phase_head_cuda import phase_head
 
     cfg = default_config()
-    t0 = time.perf_counter()
     run = make_generate_and_read_fn(cfg, seed=SEED)
-    log(f"  models built with random weights (seed {SEED}) in "
-        f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED)
     stacks = rng.normal(size=(2, cfg.img_height, cfg.img_width,
                               cfg.style_stack)).astype(np.float32)
@@ -431,94 +412,6 @@ def phase_main_path(torch, launches, card: str):
             f"{tuple(images.shape)} {images.dtype} in "
             f"[{float(img.min()):.3f}, {float(img.max()):.3f}], ids "
             f"{tuple(ids.shape)}; first word read as {ids[0].tolist()}")
-
-    style, words = requests[0]
-    labels = encode_labels(words, cfg.output_max_len)
-    for _ in range(3):
-        run(style, labels)
-    walls = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        run(style, labels)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-    wall = statistics.median(walls)
-    log(f"  256-word request: median {wall * 1e3:.3f} ms over 10 -> "
-        f"{len(words) / wall:.1f} imgs/s on {card}")
-    stages = stage_times(torch, run, style, labels)
-    kernel_ms, idle, launches = traced(
-        torch, lambda: run(style, labels), 3, wall * 1e3, "request")
-    return {"imgs_per_s": len(words) / wall, "request_ms": wall * 1e3,
-            "stages_ms": stages, "kernel_ms": kernel_ms, "idle_share": idle,
-            "launches_per_request": launches}
-
-
-def stage_times(torch, run, style, labels):
-    """Device ms of each stage of the 256-word request (CUDA events, two
-    calls per event pair, median of 10 pairs)."""
-    from affganwriting_torch.tools.timing import cuda_ms
-
-    gen, rec = run.gen, run.rec
-    style_t = torch.as_tensor(style, device="cuda")
-    lab = torch.as_tensor(labels, device="cuda").long()
-    with torch.inference_mode():
-        pyramid = gen.encode_style(style_t)
-        images = gen.generate(pyramid, lab)
-        seq = rec.enc.sequence(images)
-        enc_out, h0 = rec.enc.rnn(seq)
-        stages = {
-            "G.encode_style": lambda: gen.encode_style(style_t),
-            "G.generate": lambda: gen.generate(pyramid, lab),
-            "R.trunk": lambda: rec.enc.sequence(images),
-            "R.bigru": lambda: rec.enc.rnn(seq),
-            "R.decode": lambda: rec.decode(enc_out, h0, lab),
-        }
-        stages = {k: cuda_ms(fn, iters=10, reps=2)
-                  for k, fn in stages.items()}
-    for k, v in stages.items():
-        log(f"  stage {k:16s} {v:9.3f} ms")
-    return stages
-
-
-def traced(torch, fn, reps: int, unprofiled_ms: float, what: str):
-    """Kernel time per call of ``fn`` from ``torch.profiler`` over ``reps``
-    calls, the device's idle share against the unprofiled median (the
-    profiler's own host cost would count as idle otherwise), the launch
-    count and the kernels that take the most device time.  Profiler ranges
-    on the device timeline (``Optimizer.step``) are not kernels and are
-    left out."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    if not kernels:
-        raise AssertionError("torch.profiler recorded no device time")
-    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
-    launches = sum(e.count for e in kernels) / reps
-    idle = 1 - kernel_ms / unprofiled_ms
-    log(f"  traced: kernel time {kernel_ms:.3f} ms a {what}, idle share "
-        f"{idle:.3f} of the unprofiled {unprofiled_ms:.3f} ms, "
-        f"{launches:.0f} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  {e.self_device_time_total / 1e3 / reps:9.3f} ms "
-            f"{e.count // reps:5d}x  {e.key[:100]}")
-    return kernel_ms, idle, launches
-
-
-def phase_kernel_times(peaks):
-    """``cli/bench_kernels.py``'s rows: each kernel beside its plain
-    version, one library call and the card's bound."""
-    from affganwriting_torch.cli.bench_kernels import kernel_times
-
-    return kernel_times(peaks, batch=256, log=log)
 
 
 def random_batch(torch, cfg, b: int, gen, device):
@@ -610,12 +503,11 @@ def phase_train_reference(torch):
     return errs
 
 
-def phase_train(torch, card: str):
+def phase_train(torch):
     """The merged train step at full width: default_config (resnet50 G,
     D and C at 6 layers, R hidden 512, bf16 on f32 parameters, Adam), batch
-    8, random weights and batch from the seed; 3 warm-up and 10 timed
-    steps, then one eval step, one 4-phase step and the merged step at
-    batch 64."""
+    8, random weights and batch from the seed; 13 steps, then one eval
+    step, two 4-phase steps and two merged steps at batch 64."""
     from affganwriting_torch.core.config import default_config
     from affganwriting_torch.ops.in_relu_cuda import in_relu
     from affganwriting_torch.ops.phase_head_cuda import phase_head
@@ -634,49 +526,31 @@ def phase_train(torch, card: str):
 
     cfg = default_config()
     b = cfg.batch_size
-    t0 = time.perf_counter()
     state = init_state(cfg, seed=SEED)
-    log(f"  state built in {time.perf_counter() - t0:.1f} s; parameters "
-        f"{param_count(state)}")
+    log(f"  parameters {param_count(state)}")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     batch = random_batch(torch, cfg, b, gen, "cuda")
     step = make_phased_train_step(cfg, merge_dg=True)
     before = snapshot(torch, state)
     rec_stats = {}
-    events = {}
 
     def on_phase(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events[name] = ev
         if name == "rec":
             rec_stats.update({k: v.clone() for k, v in
                               state.rec.model.state_dict().items()
                               if is_stat(k)})
 
     in_relu.launches = phase_head.launches_wgmma = phase_head.launches = 0
-    walls, phase_ms, losses = [], [], []
-    torch.cuda.reset_peak_memory_stats()
-    for i in range(13):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
+    losses = []
+    for _ in range(13):
         _, metrics, extras = step(state, batch, gen, on_phase)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
         losses.append({k: float(v) for k, v in metrics.items()})
-        phase_ms.append({
-            "R": start.elapsed_time(events["rec"]),
-            "C": events["rec"].elapsed_time(events["cla"]),
-            "D+G": events["cla"].elapsed_time(events["dis_gen"])})
         moved = [k for k, v in state.rec.model.state_dict().items()
                  if is_stat(k) and not torch.equal(v, rec_stats[k])]
         if moved:
             raise AssertionError(f"R's running stats moved in the G phase: "
                                  f"{moved[:3]}")
     train_counts = counts()
-    peak = torch.cuda.max_memory_allocated()
     bad = [(i, k, v) for i, m in enumerate(losses) for k, v in m.items()
            if not math.isfinite(v)]
     if bad:
@@ -696,23 +570,11 @@ def phase_train(torch, card: str):
         if n in ("gen", "rec") and not all(
                 not torch.equal(before[n][k], after[n][k]) for k in stats):
             raise AssertionError(f"{n}'s running stats did not all move")
-    timed = walls[3:]
-    step_ms = statistics.median(timed) * 1e3
-    phases = {k: statistics.median(p[k] for p in phase_ms[3:])
-              for k in ("R", "C", "D+G")}
     log(f"  13 steps, losses finite; all four players moved; G's and R's "
         f"running stats moved, R's not in the G phase; kernel launches in "
         f"13 train steps: {train_counts}")
     log(f"  step 0 losses {losses[0]}")
     log(f"  step 12 losses {losses[-1]}")
-    log(f"  merged step, batch {b}: median {step_ms:.3f} ms over 10 (min "
-        f"{min(timed) * 1e3:.3f}, max {max(timed) * 1e3:.3f}) -> "
-        f"{b / (step_ms / 1e3):.1f} words/s on {card}")
-    log("  phase device ms (CUDA events, median of 10): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in phases.items()))
-    log(f"  peak memory {peak / 2**30:.3f} GiB")
-    kernel_ms, idle, launches = traced(
-        torch, lambda: step(state, batch, gen), 1, step_ms, "step")
 
     eval_step = make_eval_step(cfg)
     in_relu.launches = phase_head.launches_wgmma = phase_head.launches = 0
@@ -731,109 +593,47 @@ def phase_train(torch, card: str):
         raise AssertionError("non-finite eval losses")
 
     four = make_phased_train_step(cfg, merge_dg=False)
-    four(state, batch, gen)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    _, m4, _ = four(state, batch, gen)
-    torch.cuda.synchronize()
-    four_ms = (time.perf_counter() - t) * 1e3
-    if not all(math.isfinite(float(v)) for v in m4.values()):
-        raise AssertionError("non-finite losses in the 4-phase step")
-    log(f"  4-phase step, batch {b}: {four_ms:.3f} ms (one timed step), "
-        f"losses finite")
+    for _ in range(2):
+        _, m4, _ = four(state, batch, gen)
+        if not all(math.isfinite(float(v)) for v in m4.values()):
+            raise AssertionError("non-finite losses in the 4-phase step")
+    log(f"  two 4-phase steps, batch {b}: losses finite")
 
     big = random_batch(torch, cfg, 64, gen, "cuda")
-    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
-        step(state, big, gen)
-    walls64 = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         _, m64, _ = step(state, big, gen)
-        torch.cuda.synchronize()
-        walls64.append(time.perf_counter() - t)
-    ms64 = statistics.median(walls64) * 1e3
-    peak64 = torch.cuda.max_memory_allocated()
-    if not all(math.isfinite(float(v)) for v in m64.values()):
-        raise AssertionError("non-finite losses at batch 64")
-    log(f"  merged step, batch 64: median {ms64:.3f} ms over 5 (min "
-        f"{min(walls64) * 1e3:.3f}, max {max(walls64) * 1e3:.3f}) -> "
-        f"{64 / (ms64 / 1e3):.1f} words/s; peak memory "
-        f"{peak64 / 2**30:.3f} GiB")
-    return {"step_ms": step_ms, "step_ms_min": min(timed) * 1e3,
-            "step_ms_max": max(timed) * 1e3,
-            "words_per_s": b / (step_ms / 1e3), "phase_ms": phases,
-            "peak_gib": peak / 2**30, "four_phase_ms": four_ms,
-            "batch64_ms": ms64, "batch64_words_per_s": 64 / (ms64 / 1e3),
-            "batch64_peak_gib": peak64 / 2**30,
-            "launches_13_train_steps": list(train_counts),
-            "launches_eval_step": list(eval_counts),
-            "step_kernel_ms": kernel_ms, "step_idle_share": idle,
-            "step_launches": launches}
+        if not all(math.isfinite(float(v)) for v in m64.values()):
+            raise AssertionError("non-finite losses at batch 64")
+    log("  two merged steps, batch 64: losses finite")
+    return {"launches_13_train_steps": list(train_counts),
+            "launches_eval_step": list(eval_counts)}
 
 
-class _Timed:
-    """Class-level wrappers that time every ``CheckpointManager`` save and
-    load, and count the kernel launches and seconds of each trainer epoch
-    and evaluation, for phase 7; ``restore()`` puts the methods back."""
-
-    def __init__(self, counts):
-        from affganwriting_torch.core.checkpoint import CheckpointManager
-        from affganwriting_torch.train.loop import WordGanTrainer
-
-        self.saves, self.loads, self.epochs, self.evals = [], [], [], []
-        self._orig = []
-
-        def wrap(cls, name, record, what):
-            orig = getattr(cls, name)
-
-            def timed(obj, *a, **k):
-                import torch
-
-                before = counts()
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = orig(obj, *a, **k)
-                torch.cuda.synchronize()
-                record.append(what(obj, a, out, time.perf_counter() - t,
-                                   tuple(x - y for x, y in
-                                         zip(counts(), before))))
-                return out
-
-            self._orig.append((cls, name, orig))
-            setattr(cls, name, timed)
-
-        import os
-
-        wrap(CheckpointManager, "save", self.saves,
-             lambda o, a, out, s, n: (a[0], s, os.path.getsize(o._path(a[0]))))
-        wrap(CheckpointManager, "load", self.loads,
-             lambda o, a, out, s, n: (a[0], s))
-        wrap(WordGanTrainer, "train_epoch", self.epochs,
-             lambda o, a, out, s, n: (s, n, out))
-        wrap(WordGanTrainer, "evaluate", self.evals,
-             lambda o, a, out, s, n: (
-                 s, n, len(o.test_data) // o.config.batch_size))
-
-    def restore(self):
-        for cls, name, orig in self._orig:
-            setattr(cls, name, orig)
+def _counted(method, record: list, counts):
+    """``method`` with the kernel launches of each call appended to
+    ``record``, with what it returned."""
+    def run(*a, **k):
+        before = counts()
+        out = method(*a, **k)
+        record.append((tuple(x - y for x, y in zip(counts(), before)), out))
+        return out
+    return run
 
 
-def phase_trainer_runtime(torch, card: str, tmp: str):
+def phase_trainer_runtime(torch, tmp: str):
     """The word trainer runtime at full width (default_config: resnet50,
     bf16 on f32 parameters, Adam, merged D+G, batch 8, synthetic images
     from the in-repo GT), in a temporary logdir under ``build/``:
 
     (a) ``cli/train_word`` for 2 epochs of 16 writers (2 train steps and 2
-        eval batches an epoch), evaluating and saving every epoch;
+        eval batches an epoch), evaluating and saving every epoch, the
+        launches of each epoch and evaluation counted;
     (b) a trainer built on the same logdir resumes at epoch 2 with every
         parameter, statistic and optimizer field of the last save, R's
         learning rate included, and trains one more epoch;
-    (c) ``cli/generate_word`` from ``best``: the word ladder for one writer,
-        greedily as a warm-up, then with a beam of 3, of 1 (which must read
-        as the greedy path up to the first END) and greedily;
+    (c) ``cli/generate_word`` from ``best``: the word ladder for one writer
+        with a beam of 3, of 1 (which must read as the greedy path up to
+        the first END) and greedily;
     (d) ``cli/inspect_ckpt`` prints ``param_count``'s counts.
 
     The run stays in ``tmp`` (phase 8 scores its ``best``)."""
@@ -855,152 +655,111 @@ def phase_trainer_runtime(torch, card: str, tmp: str):
     logdir = os.path.join(tmp, "run")
     argv = ["--epochs", "2", "--max-writers", "16", "--eval-every", "1",
             "--save-every", "1", "--restart-rss-gb", "0", "--logdir", logdir]
-    timed = _Timed(counts)
     out = {}
-    try:
-        in_relu.launches = phase_head.launches_wgmma = phase_head.launches = 0
-        t0 = time.perf_counter()
-        trainer = train_word.main(argv)
-        torch.cuda.synchronize()
-        out["train_2_epochs_s"] = time.perf_counter() - t0
-        lines = [json.loads(s) for s in open(f"{logdir}/metrics.jsonl")]
-        if [r["group"] for r in lines] != ["train", "eval"] * 2:
-            raise AssertionError(
-                f"metrics groups {[r['group'] for r in lines]}")
-        for r in lines:
-            vals = {k: v for k, v in r.items() if k != "group"}
-            if not all(math.isfinite(v) for v in vals.values()) or min(
-                    v for k, v in vals.items() if k.startswith("cer")) < 0:
-                raise AssertionError(f"bad metrics line {r}")
-        ck = os.listdir(f"{logdir}/ckpt")
-        if not {"latest", "step_00000001", "best"} <= set(ck):
-            raise AssertionError(f"checkpoints {sorted(ck)}")
-        # each eval follows a train epoch, whose train() dropped the
-        # decoder's graph: its first batch captures, the second replays
-        if [(cnt, n) for _, cnt, n in timed.evals] \
-                != [(dec_launches(captures=1), 2)] * 2:
-            raise AssertionError(f"eval launches and batches {timed.evals}: "
-                                 "not one capture of the decoder over 2 "
-                                 "batches")
-        if any(cnt != (0, 0, 0) for _, cnt, _ in timed.epochs):
-            raise AssertionError(f"a train epoch launched a forward-only "
-                                 f"kernel: {[c for _, c, _ in timed.epochs]}")
-        for (s, cnt, m), (es, ecnt, nb) in zip(timed.epochs, timed.evals):
-            log(f"  epoch: {s:.3f} s wall ({m['epoch_seconds']:.3f} s in "
-                f"train_epoch's own clock, {m['steps_per_sec']:.3f} steps/s)"
-                f", launches {cnt}; eval {es:.3f} s for {nb} batches "
-                f"({es / nb:.3f} s a batch), launches {ecnt}; cer_tr "
-                f"{m['cer_tr']:.2f}, l_total {m['l_total']:.4f}")
-        out["epochs"] = [{"wall_s": s, "epoch_seconds": m["epoch_seconds"],
-                          "steps_per_sec": m["steps_per_sec"]}
-                         for s, _, m in timed.epochs]
-        out["eval_s_per_batch"] = [s / nb for s, _, nb in timed.evals]
-        _, ecnt, nb = timed.evals[-1]
-        out["eval_launches_per_batch"] = [c // nb for c in ecnt]
+    in_relu.launches = phase_head.launches_wgmma = phase_head.launches = 0
+    # train_word.main, with the trainer's epochs and evaluations counted
+    trainer, epochs_n = train_word.build_trainer(argv)
+    epochs, evals = [], []
+    trainer.train_epoch = _counted(trainer.train_epoch, epochs, counts)
+    trainer.evaluate = _counted(trainer.evaluate, evals, counts)
+    trainer.fit(epochs_n)
+    lines = [json.loads(s) for s in open(f"{logdir}/metrics.jsonl")]
+    if [r["group"] for r in lines] != ["train", "eval"] * 2:
+        raise AssertionError(
+            f"metrics groups {[r['group'] for r in lines]}")
+    for r in lines:
+        vals = {k: v for k, v in r.items() if k != "group"}
+        if not all(math.isfinite(v) for v in vals.values()) or min(
+                v for k, v in vals.items() if k.startswith("cer")) < 0:
+            raise AssertionError(f"bad metrics line {r}")
+    ck = os.listdir(f"{logdir}/ckpt")
+    if not {"latest", "step_00000001", "best"} <= set(ck):
+        raise AssertionError(f"checkpoints {sorted(ck)}")
+    nb = len(trainer.test_data) // trainer.config.batch_size
+    # each eval follows a train epoch, whose train() dropped the
+    # decoder's graph: its first batch captures, the second replays
+    if [cnt for cnt, _ in evals] != [dec_launches(captures=1)] * 2 \
+            or nb != 2:
+        raise AssertionError(f"eval launches {[c for c, _ in evals]} over "
+                             f"{nb} batches: not one capture of the "
+                             "decoder over 2 batches")
+    if any(cnt != (0, 0, 0) for cnt, _ in epochs):
+        raise AssertionError(f"a train epoch launched a forward-only "
+                             f"kernel: {[c for c, _ in epochs]}")
+    for (cnt, m), (ecnt, _) in zip(epochs, evals):
+        log(f"  epoch: launches {cnt}; eval of {nb} batches, launches "
+            f"{ecnt}; cer_tr {m['cer_tr']:.2f}, l_total {m['l_total']:.4f}")
+    out["eval_launches_per_batch"] = [c // nb for c in evals[-1][0]]
 
-        # the last save of (a), with R's rate moved as a plateau step would
-        set_rec_lr(trainer.state, trainer.config.lr_rec * 0.1)
-        trainer.ckpt.save_latest(trainer.state, trainer.config)
-        saved = state_payload(trainer.state)
-        cfg = trainer.config
-        for name, s, size in timed.saves:
-            log(f"  saved {name}: {s:.3f} s, {size / 2**30:.3f} GiB")
-        out["saves"] = [{"name": n, "s": s, "bytes": b}
-                        for n, s, b in timed.saves]
+    # the last save of (a), with R's rate moved as a plateau step would
+    set_rec_lr(trainer.state, trainer.config.lr_rec * 0.1)
+    trainer.ckpt.save_latest(trainer.state, trainer.config)
+    saved = state_payload(trainer.state)
+    cfg = trainer.config
 
-        trainer_b, _ = train_word.build_trainer(["--epochs", "3"] + argv[2:])
-        if trainer_b.start_epoch != 2:
-            raise AssertionError(f"resumed at epoch {trainer_b.start_epoch}")
-        got = state_payload(trainer_b.state)
-        fields = _compare_payloads(torch, got, saved)
-        lr = got["rec"]["opt"]["param_groups"][0]["lr"]
-        if lr != cfg.lr_rec * 0.1:
-            raise AssertionError(f"R's lr {lr} not restored")
-        log(f"  resumed at epoch 2: {fields} tensors and optimizer fields "
-            f"bit-equal to the last save, R's lr {lr:g}")
-        del trainer, saved, got
-        trainer_b.fit(3)
-        last = [json.loads(s) for s in open(f"{logdir}/metrics.jsonl")][-2:]
-        if [r["group"] for r in last] != ["train", "eval"] or not all(
-                math.isfinite(v) for r in last for k, v in r.items()
-                if k.startswith("l_")):
-            raise AssertionError(f"resumed epoch: {last}")
-        log(f"  resumed epoch 2: l_total {last[0]['l_total']:.4f}, cer_te "
-            f"{last[1]['cer_te']:.2f}")
-        counts_b = param_count(trainer_b.state)
-        out.update(_host_parts(torch, trainer_b))
-        for what, data in (("train", trainer_b.train_data),
-                           ("held-out", trainer_b.test_data)):
-            t0 = time.perf_counter()
-            n = sum(1 for _ in data.batches(epoch=9))
-            s = time.perf_counter() - t0
-            out[f"{what}_batches_s"] = s
-            log(f"  data alone: {n} {what} batches of epoch 9 built in "
-                f"{s:.3f} s ({s / n:.3f} s a batch, synthetic renders "
-                "cached as the run left them)")
-        del trainer_b
-        torch.cuda.empty_cache()
+    trainer_b, _ = train_word.build_trainer(["--epochs", "3"] + argv[2:])
+    if trainer_b.start_epoch != 2:
+        raise AssertionError(f"resumed at epoch {trainer_b.start_epoch}")
+    got = state_payload(trainer_b.state)
+    fields = _compare_payloads(torch, got, saved)
+    lr = got["rec"]["opt"]["param_groups"][0]["lr"]
+    if lr != cfg.lr_rec * 0.1:
+        raise AssertionError(f"R's lr {lr} not restored")
+    log(f"  resumed at epoch 2: {fields} tensors and optimizer fields "
+        f"bit-equal to the last save, R's lr {lr:g}")
+    del trainer, saved, got
+    trainer_b.fit(3)
+    last = [json.loads(s) for s in open(f"{logdir}/metrics.jsonl")][-2:]
+    if [r["group"] for r in last] != ["train", "eval"] or not all(
+            math.isfinite(v) for r in last for k, v in r.items()
+            if k.startswith("l_")):
+        raise AssertionError(f"resumed epoch: {last}")
+    log(f"  resumed epoch 2: l_total {last[0]['l_total']:.4f}, cer_te "
+        f"{last[1]['cer_te']:.2f}")
+    counts_b = param_count(trainer_b.state)
+    del trainer_b
+    torch.cuda.empty_cache()
 
-        gen_out, reads = {}, {}
-        # the first run renders the writer's style images and meets the
-        # batch's shapes for the first time: a greedy warm-up takes that
-        for tag, beam in (("warm-up", 0), (3, 3), (1, 1), (0, 0)):
-            before = counts()
-            t0 = time.perf_counter()
-            res = generate_word.main([
-                "--ckpt", f"{logdir}/ckpt", "--ckpt-name", "best",
-                "--corpus", "ladder", "--max-writers", "1", "--beam",
-                str(beam), "--out", os.path.join(tmp, f"gen{tag}")])
-            torch.cuda.synchronize()
-            s = time.perf_counter() - t0
-            launched = tuple(a - b for a, b in zip(counts(), before))
-            files = os.listdir(os.path.join(tmp, f"gen{tag}"))
-            ids = res["pred_ids"]
-            if len(files) != 17 or len(res["files"]) != 17 or not all(
-                    f.endswith((".png", ".png.npy")) for f in files):
-                raise AssertionError(f"generate_word wrote {len(files)} files")
-            if ids.shape != (17, cfg.output_max_len - 1) or ids.min() < 0 \
-                    or ids.max() >= VOCAB.size:
-                raise AssertionError(f"beam ids {ids.shape} in "
-                                     f"[{ids.min()}, {ids.max()}]")
-            if launched != dec_launches(captures=1):
-                raise AssertionError(f"a generate_word call launched "
-                                     f"{launched}, not one capture of the "
-                                     "decoder")
-            reads[tag] = [_until_end(r, VOCAB.end) for r in ids.tolist()]
-            loop = res["seconds"]
-            key = "warm_up" if tag == "warm-up" else f"beam{beam}"
-            gen_out[key] = {"s": s, "words_per_s": 17 / s, "loop_s": loop,
-                            "loop_words_per_s": 17 / loop,
-                            "launches": list(launched)}
-            log(f"  generate_word --beam {beam}"
-                f"{' (warm-up)' if tag == 'warm-up' else ''}: 17 files in "
-                f"{s:.3f} s ({17 / s:.2f} words/s, checkpoint load and "
-                f"model build included; the writer loop {loop:.3f} s, "
-                f"{17 / loop:.1f} words/s), launches {launched}; first read "
-                f"{VOCAB.decode(ids[0])!r}")
-        if reads[1] != reads[0]:
-            raise AssertionError("a width-1 beam read differently from the "
-                                 "greedy path")
-        out["generate_word"] = gen_out
+    reads = {}
+    for beam in (3, 1, 0):
+        before = counts()
+        res = generate_word.main([
+            "--ckpt", f"{logdir}/ckpt", "--ckpt-name", "best",
+            "--corpus", "ladder", "--max-writers", "1", "--beam",
+            str(beam), "--out", os.path.join(tmp, f"gen{beam}")])
+        launched = tuple(a - b for a, b in zip(counts(), before))
+        files = os.listdir(os.path.join(tmp, f"gen{beam}"))
+        ids = res["pred_ids"]
+        if len(files) != 17 or len(res["files"]) != 17 or not all(
+                f.endswith((".png", ".png.npy")) for f in files):
+            raise AssertionError(f"generate_word wrote {len(files)} files")
+        if ids.shape != (17, cfg.output_max_len - 1) or ids.min() < 0 \
+                or ids.max() >= VOCAB.size:
+            raise AssertionError(f"beam ids {ids.shape} in "
+                                 f"[{ids.min()}, {ids.max()}]")
+        if launched != dec_launches(captures=1):
+            raise AssertionError(f"a generate_word call launched "
+                                 f"{launched}, not one capture of the "
+                                 "decoder")
+        reads[beam] = [_until_end(r, VOCAB.end) for r in ids.tolist()]
+        if beam == 0:
+            out["generate_word_launches"] = list(launched)
+        log(f"  generate_word --beam {beam}: 17 files, launches "
+            f"{launched}; first read {VOCAB.decode(ids[0])!r}")
+    if reads[1] != reads[0]:
+        raise AssertionError("a width-1 beam read differently from the "
+                             "greedy path")
 
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            shown = inspect_ckpt.main([f"{logdir}/ckpt"])
-        if shown["param_counts"] != counts_b or not all(
-                f'"{n}": {c}' in buf.getvalue() for n, c in counts_b.items()):
-            raise AssertionError(f"inspect_ckpt printed {shown}, "
-                                 f"param_count {counts_b}")
-        log(f"  inspect_ckpt: step {shown['step']}, parameters "
-            f"{shown['param_counts']}")
-        for path, s in timed.loads:
-            log(f"  loaded {os.path.basename(path)}: {s:.3f} s")
-        out["loads"] = [{"name": os.path.basename(p), "s": s}
-                        for p, s in timed.loads]
-        torch.cuda.empty_cache()
-    finally:
-        timed.restore()
-    log(f"  phase 7 on {card}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        shown = inspect_ckpt.main([f"{logdir}/ckpt"])
+    if shown["param_counts"] != counts_b or not all(
+            f'"{n}": {c}' in buf.getvalue() for n, c in counts_b.items()):
+        raise AssertionError(f"inspect_ckpt printed {shown}, "
+                             f"param_count {counts_b}")
+    log(f"  inspect_ckpt: step {shown['step']}, parameters "
+        f"{shown['param_counts']}")
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1055,12 +814,11 @@ def phase_eval_reference(torch):
     return errs
 
 
-def phase_encoders(torch, card: str, counts, zero):
+def phase_encoders(torch, counts, zero):
     """(b) Each new encoder at full width (``default_config()`` with it,
     bf16, random weights from the seed): one request of 1 writer x 64
-    words, then timed (median of 5 after a warm-up); parameters and peak
-    memory; merged train steps at batch 8 (Adam): one checked, then 3
-    timed (median; their peak memory is the train peak)."""
+    words; parameters; merged train steps at batch 8 (Adam): one checked,
+    then 3 more with finite losses."""
     import numpy as np
 
     from affganwriting_torch.core.config import default_config
@@ -1080,10 +838,7 @@ def phase_encoders(torch, card: str, counts, zero):
                                  cfg.style_stack)).astype(np.float32)
         labels = encode_labels(WORDS * 8, cfg.output_max_len)
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
         run = make_generate_and_read_fn(cfg, seed=SEED)
-        build_s = time.perf_counter() - t0
         n_enc = sum(p.numel() for p in run.gen.enc_image.parameters())
         n_gen = sum(p.numel() for p in run.gen.parameters())
         zero()
@@ -1101,23 +856,10 @@ def phase_encoders(torch, card: str, counts, zero):
                                  f"{launched}, not {dec_launches(captures=1)}"
                                  " (a capture of the decoder on its wgmma "
                                  "route)")
-        run(style, labels)
-        walls = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            run(style, labels)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t)
-        req_ms = statistics.median(walls) * 1e3
-        serve_peak = torch.cuda.max_memory_allocated() / 2**30
         del run, images, ids
         torch.cuda.empty_cache()
 
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
         state = init_state(cfg, seed=SEED)
-        state_s = time.perf_counter() - t0
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         batch = random_batch(torch, cfg, cfg.batch_size, gen, "cuda")
         step = make_phased_train_step(cfg, merge_dg=True)
@@ -1150,39 +892,21 @@ def phase_encoders(torch, card: str, counts, zero):
             raise AssertionError(f"inception_v3: {moved}/{len(enc_stats)} "
                                  "trunk statistics changed")
         del before, now
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        walls = []
         for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
             _, metrics, _ = step(state, batch, gen)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t)
             if not all(math.isfinite(float(v)) for v in metrics.values()):
                 raise AssertionError(f"{name}: non-finite losses")
-        step_ms = statistics.median(walls) * 1e3
-        train_peak = torch.cuda.max_memory_allocated() / 2**30
         del state, batch, step
         torch.cuda.empty_cache()
         out[name] = {"encoder_params": n_enc, "gen_params": n_gen,
-                     "build_s": build_s, "request_ms": req_ms,
-                     "words_per_s": 64 / (req_ms / 1e3),
-                     "serve_peak_gib": serve_peak,
                      "launches_generate_call": list(launched),
-                     "state_build_s": state_s, "step_ms": step_ms,
-                     "train_peak_gib": train_peak, "step0_losses": losses,
+                     "step0_losses": losses,
                      "enc_stats": len(enc_stats), "enc_stats_moved": moved}
         log(f"  {name}: encoder {n_enc / 1e6:.2f} M of G's {n_gen / 1e6:.2f}"
-            f" M parameters, built in {build_s:.1f} s; 1 x 64 words "
-            f"{req_ms:.3f} ms (median of 5, {64 / (req_ms / 1e3):.1f} "
-            f"words/s), launches {launched}, peak {serve_peak:.3f} GiB; "
-            f"train state {state_s:.1f} s, merged step at batch "
-            f"{cfg.batch_size} {step_ms:.3f} ms (median of 3 after the "
-            f"first), peak "
-            f"{train_peak:.3f} GiB, encoder statistics moved {moved}/"
-            f"{len(enc_stats)}; step 0 l_total {losses['l_total']:.4f}")
-    log(f"  encoders on {card}")
+            f" M parameters; 1 x 64 words, launches {launched}; merged "
+            f"steps at batch {cfg.batch_size}, losses finite, encoder "
+            f"statistics moved {moved}/{len(enc_stats)}; step 0 l_total "
+            f"{losses['l_total']:.4f}")
     return out
 
 
@@ -1199,7 +923,6 @@ def phase_quality_report(torch, tmp: str, counts, zero):
 
     out_dir = os.path.join(tmp, "quality")
     zero()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         report = quality_report.main([
             "--ckpt", os.path.join(tmp, "run", "ckpt"), "--ckpt-name",
@@ -1207,7 +930,6 @@ def phase_quality_report(torch, tmp: str, counts, zero):
             "--words-per-writer", "64",
             "--out", out_dir])
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launched = counts()
     gen_dir, real_dir = (os.path.join(out_dir, d)
                          for d in ("generated", "real"))
@@ -1231,40 +953,19 @@ def phase_quality_report(torch, tmp: str, counts, zero):
         raise AssertionError(f"quality_report launched {launched} for "
                              f"{w * calls} generate calls of {sizes} sizes")
     n_real = len(os.listdir(real_dir))
-    log(f"  quality_report: {wall:.3f} s wall; {report['cer']['count']} "
-        f"generated and {n_real} real words; cer {report['cer']['cer']:.3f}"
-        f" (= cer_of_folder), fid_random_features "
+    log(f"  quality_report: {report['cer']['count']} generated and "
+        f"{n_real} real words; cer {report['cer']['cer']:.3f} (= "
+        f"cer_of_folder), fid_random_features "
         f"{report['fid_random_features']:.6g}, wid "
         f"{report.get('wid_fid_random_features', report.get('wid_fid_error'))}"
-        f"; seconds { {k: round(v, 3) for k, v in report['seconds'].items()} }"
         f"; launches {launched} over {w * calls} generate calls")
-    res = {"report": report, "wall_s": wall, "launches": list(launched),
+    report.pop("seconds")
+    res = {"report": report, "launches": list(launched),
            "generate_calls": w * calls, "real_words": n_real}
-    # the activation pass alone: 512 crops, upload and download included
-    import numpy as np
-
-    from affganwriting_torch.eval.fid import FIDScorer, crop64_preprocess
-
-    scorer = FIDScorer()
-    crops = crop64_preprocess(np.random.default_rng(SEED).random(
-        (512, 64, 216)).astype(np.float32))
-    scorer.activations(crops[:64])
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        scorer.activations(crops)
-        walls.append(time.perf_counter() - t0)
-    res["activations_ms_per_image"] = statistics.median(walls) * 1e3 / 512
-    log(f"  FID activations alone: {res['activations_ms_per_image']:.4f} ms "
-        f"an image (512 crops in batches of {scorer.batch_size}, f32, "
-        "median of 3)")
     for extra, key in (([], "fid_random_features"),
                        (["--per-writer"], "wid_fid_random_features")):
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()) as buf:
             ev = evaluate.main([gen_dir, "--real", real_dir] + extra)
-        s = time.perf_counter() - t0
         if json.loads(buf.getvalue()) != ev or set(ev) != {
                 "cer", "fid_provenance", key}:
             raise AssertionError(f"evaluate {extra}: {ev}")
@@ -1274,9 +975,9 @@ def phase_quality_report(torch, tmp: str, counts, zero):
                 1.0, abs(report[key])):
             raise AssertionError(f"evaluate's {key} {ev[key]} is not the "
                                  f"report's {report[key]}")
-        res[f"evaluate{''.join(extra)}"] = {"s": s, **ev}
-        log(f"  evaluate {' '.join(extra)}: {key} {ev[key]:.6g} in {s:.3f} "
-            "s, cer as the report's")
+        res[f"evaluate{''.join(extra)}"] = ev
+        log(f"  evaluate {' '.join(extra)}: {key} {ev[key]:.6g}, cer as the "
+            "report's")
     return res
 
 
@@ -1317,11 +1018,10 @@ def phase_trocr_reference(torch):
             "grad_scale": gscale}
 
 
-def phase_trocr(torch, card: str, tmp: str, counts, zero):
+def phase_trocr(torch, tmp: str, counts, zero):
     """(b) ``train_word --recognizer trocr --trocr-preset base`` at
     ``default_config()`` (TrOCR base, random weights, frozen; f32), batch
-    8: 3 warm-up and 5 timed merged steps, one eval step, one 64-word
-    request."""
+    8: 8 merged steps, one eval step, one 64-word request."""
     from affganwriting_torch.cli import train_word
     from affganwriting_torch.gen.inference import (
         encode_labels,
@@ -1329,7 +1029,6 @@ def phase_trocr(torch, card: str, tmp: str, counts, zero):
     )
     from affganwriting_torch.train.state import param_count
 
-    t0 = time.perf_counter()
     trainer, _ = train_word.build_trainer([
         "--recognizer", "trocr", "--trocr-preset", "base",
         "--batch-size", "8", "--max-writers", "8", "--restart-rss-gb", "0",
@@ -1339,23 +1038,17 @@ def phase_trocr(torch, card: str, tmp: str, counts, zero):
             ("trocr", True, "base") or state.rec.opt is not None:
         raise AssertionError("train_word did not build a frozen TrOCR base")
     counts_p = param_count(state)
-    log(f"  train_word --recognizer trocr --trocr-preset base built in "
-        f"{time.perf_counter() - t0:.1f} s; parameters {counts_p}")
+    log(f"  train_word --recognizer trocr --trocr-preset base: parameters "
+        f"{counts_p}")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     batch = random_batch(torch, cfg, 8, gen, "cuda")
     before = snapshot(torch, state)
-    torch.cuda.reset_peak_memory_stats()
     zero()
-    walls, losses = [], []
+    losses = []
     for _ in range(8):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         _, metrics, _ = trainer.train_step(state, batch, gen)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
         losses.append({k: float(v) for k, v in metrics.items()})
     train_counts = counts()
-    peak = torch.cuda.max_memory_allocated()
     bad = [(i, k) for i, m in enumerate(losses) for k, v in m.items()
            if not math.isfinite(v)]
     if bad:
@@ -1370,12 +1063,8 @@ def phase_trocr(torch, card: str, tmp: str, counts, zero):
     if train_counts != (0, 0, 0):
         raise AssertionError(f"a train step launched a kernel: "
                              f"{train_counts}")
-    step_ms = statistics.median(walls[3:]) * 1e3
-    log(f"  merged step with TrOCR base, batch 8: median {step_ms:.3f} ms "
-        f"over 5 (min {min(walls[3:]) * 1e3:.3f}, max "
-        f"{max(walls[3:]) * 1e3:.3f}) -> {8 / (step_ms / 1e3):.1f} words/s "
-        f"on {card}; peak memory {peak / 2**30:.3f} GiB; losses finite, "
-        f"TrOCR bit-unchanged, G moved; last losses {losses[-1]}")
+    log(f"  8 merged steps with TrOCR base, batch 8: losses finite, TrOCR "
+        f"bit-unchanged, G moved; last losses {losses[-1]}")
 
     zero()
     em, _, _ = trainer.eval_step(state, {k: v for k, v in batch.items()
@@ -1396,32 +1085,25 @@ def phase_trocr(torch, card: str, tmp: str, counts, zero):
                         generator=gen, device="cuda")
     labels = encode_labels((WORDS * 8)[:64], cfg.output_max_len)
     run(style, labels)
-    req = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        zero()
-        images, ids = run(style, labels)
-        torch.cuda.synchronize()
-        req.append(time.perf_counter() - t)
-        req_counts = counts()
+    zero()
+    images, ids = run(style, labels)
+    torch.cuda.synchronize()
+    req_counts = counts()
     # after the warm call the decoder replays: no kernel launched by the host
     if req_counts != dec_launches() or tuple(ids.shape) != (64, 11) or \
             not bool(torch.isfinite(images.float()).all()):
         raise AssertionError(f"TrOCR request: launches {req_counts}, ids "
                              f"{tuple(ids.shape)}")
-    req_ms = statistics.median(req) * 1e3
-    log(f"  1 x 64-word request with TrOCR base: median {req_ms:.3f} ms "
-        f"over 5; launches a call {req_counts}")
+    log(f"  1 x 64-word request with TrOCR base: launches a call "
+        f"{req_counts}")
     trainer.logger.close()
-    return {"step_ms": step_ms, "words_per_s": 8 / (step_ms / 1e3),
-            "peak_gib": peak / 2**30, "param_count": counts_p,
+    return {"param_count": counts_p,
             "launches_8_train_steps": list(train_counts),
-            "launches_eval_step": list(eval_counts), "request_ms": req_ms,
+            "launches_eval_step": list(eval_counts),
             "launches_request": list(req_counts)}
 
 
-def phase_teacher(torch, card: str, counts, zero):
+def phase_teacher(torch, counts, zero):
     """(c) ``run_teacher_phase`` at ``default_config()``, random weights,
     over 4 batches of 8: the on-device TrOCR teacher (base) and
     ``SelfTeacher`` (beam 3), each at ``conf_threshold`` 0.6 and 0.0."""
@@ -1438,22 +1120,16 @@ def phase_teacher(torch, card: str, counts, zero):
     state = init_state(cfg, seed=SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     batches = [random_batch(torch, cfg, 8, gen, "cuda") for _ in range(4)]
-    t0 = time.perf_counter()
     teachers = {"trocr_base": DeviceTrOCRTeacher(
                     cfg, arch=TrOCRArch.base_handwritten(), seed=SEED),
                 "self_beam3": SelfTeacher(cfg, state.rec.model, 3)}
-    log(f"  teachers built in {time.perf_counter() - t0:.1f} s")
     out, per_call = {}, set()
     for name, teacher in teachers.items():
         for threshold in (0.6, 0.0):
             before = snapshot(torch, state)["rec"]
             zero()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
             _, stats = run_teacher_phase(state, cfg, teacher, iter(batches),
                                          gen, conf_threshold=threshold)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t
             calls = stats["used_batches"] + stats["skipped_small_batches"]
             c = counts()
             per_call.add(c)
@@ -1468,11 +1144,9 @@ def phase_teacher(torch, card: str, counts, zero):
                         stats["avg_pseudo_loss"])):
                 raise AssertionError(f"teacher phase at threshold 0 did not "
                                      f"train R: {stats}, moved {moved}")
-            log(f"  {name} at conf_threshold {threshold}: {stats} in "
-                f"{seconds:.3f} s; R moved: {moved}; launches over "
-                f"{calls} generate calls {c}")
-            out[f"{name}@{threshold}"] = dict(stats, seconds=seconds,
-                                              r_moved=moved)
+            log(f"  {name} at conf_threshold {threshold}: {stats}; R moved: "
+                f"{moved}; launches over {calls} generate calls {c}")
+            out[f"{name}@{threshold}"] = dict(stats, r_moved=moved)
     # each run puts G back in train mode, which drops the decoder's graph:
     # its first generate call captures, the other three replay
     if per_call != {dec_launches(captures=1)}:
@@ -1481,7 +1155,7 @@ def phase_teacher(torch, card: str, counts, zero):
     return {"runs": out, "launches_4_generate_calls": list(*per_call)}
 
 
-def phase_htr(torch, card: str):
+def phase_htr(torch):
     """(d) ``HTRTrainer`` at ``default_config()``, batch 32: one epoch of 10
     steps on synthetic words with ``marcal_augment``, teacher rate 0.5."""
     import numpy as np
@@ -1496,34 +1170,23 @@ def phase_htr(torch, card: str):
     rng = np.random.default_rng(SEED)
     words = ["the", "quick", "brown", "fox", "jumps", "over", "lazy", "dog",
              "hello", "world", "recognizer", "word"]
-    batches, aug_s = [], []
+    batches = []
     for _ in range(10):
         pick = [words[int(i)] for i in rng.integers(len(words), size=32)]
-        t = time.perf_counter()
         img = np.stack([marcal_augment(
             (synthetic_word_image(w, int(s)) + 1.0) * 0.5, rng) * 2.0 - 1.0
             for w, s in zip(pick, rng.integers(500, size=32))])
-        aug_s.append(time.perf_counter() - t)
         batches.append({"image": img[..., None].astype(np.float32),
                         "labels": np.asarray([VOCAB.pad_label(
                             w, cfg.output_max_len) for w in pick], np.int32)})
     before = {k: v.clone() for k, v in trainer.rec.state_dict().items()}
-    trainer.train_epoch(batches[:1], epoch=0, total_epochs=2)  # warm-up
-    torch.cuda.synchronize()
-    t = time.perf_counter()
     m = trainer.train_epoch(batches, epoch=0, total_epochs=2)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t) * 1e3 / len(batches)
     moved = any(not torch.equal(v, trainer.rec.state_dict()[k])
                 for k, v in before.items())
     if not (math.isfinite(m["loss"]) and moved and m["teacher_rate"] == 0.5):
         raise AssertionError(f"HTR epoch: {m}, R moved {moved}")
-    aug_ms = statistics.median(aug_s) * 1e3
-    log(f"  HTR epoch of 10 steps, batch 32, teacher rate 0.5: {m}; "
-        f"{ms:.3f} ms a step on {card} (the batches built beforehand); "
-        f"marcal_augment {aug_ms:.1f} ms a batch of 32 on the host")
-    return {"ms_per_step": ms, "augment_ms_per_batch": aug_ms,
-            "loss": m["loss"], "cer": m["cer"]}
+    log(f"  HTR epoch of 10 steps, batch 32, teacher rate 0.5: {m}")
+    return {"loss": m["loss"], "cer": m["cer"]}
 
 
 def _corr(a, b) -> float:
@@ -1534,7 +1197,7 @@ def _corr(a, b) -> float:
     return float(np.corrcoef(a, b)[0, 1])
 
 
-def phase_int8(torch, card: str, counts, zero):
+def phase_int8(torch, counts, zero):
     """10 (a), (b): the w8a8 serving mode at ``default_config()`` (bf16,
     random weights from the seed), 1 writer x 256 words.  (a) calibration
     (R's trunk on one bf16 batch, G's sites on the same request), the
@@ -1544,62 +1207,35 @@ def phase_int8(torch, card: str, counts, zero):
     through ``torch._int_mm`` (23 calls a request), and ``int8_conv``'s
     int32 sums on the card bit-equal to the CPU's at three of the trunk's
     layer shapes and G's ``res0.conv0`` (batch 8, random int8 codes);
-    (b) the int8 request against the bf16 one in turns (median of 10),
-    device ms of ``G.generate`` and the trunk in each, launches of the
-    int8 generate call, peak memory (models included, above what the phase
-    found allocated) and one traced int8 request."""
+    (b) the launches of the int8 generate call, then 10 int8 and 10 bf16
+    requests in turns, none capturing the decoder again."""
     import numpy as np
 
     from affganwriting_torch.core.config import default_config
     from affganwriting_torch.gen.inference import (
-        calibrate_gen_quant,
         encode_labels,
         gen_fn_in_mode,
         make_generate_and_read_quant_fn,
     )
     from affganwriting_torch.ops.quant import (
         int8_conv_acc,
-        prepare_vgg_quant,
         quantize_weight,
         vgg_quant_apply,
     )
-    from affganwriting_torch.tools.timing import cuda_ms
 
     cfg = default_config()
-    base_bytes = torch.cuda.memory_allocated()
     run = make_generate_and_read_quant_fn(cfg, quant_gen="static", seed=SEED)
     gen, rec = run.gen, run.rec
     rng = np.random.default_rng(SEED)
     style = rng.normal(size=(1, cfg.img_height, cfg.img_width,
                              cfg.style_stack)).astype(np.float32)
     labels = encode_labels(WORDS * 32, cfg.output_max_len)
-    b = labels.shape[0]
-    style_t = torch.as_tensor(style, device="cuda")
-    lab = torch.as_tensor(labels, device="cuda").long()
 
     out = {}
-    run.calibrate(style, labels)       # warm-up of the calibration path
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     run.calibrate(style, labels)
-    torch.cuda.synchronize()
-    out["calibrate_ms"] = (time.perf_counter() - t0) * 1e3
     with torch.inference_mode():
         img_bf16 = run.base.run_gen(style, labels)
         x = img_bf16.permute(0, 3, 1, 2)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prepare_vgg_quant(rec, x)
-        torch.cuda.synchronize()
-        out["prepare_vgg_quant_ms"] = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    calibrate_gen_quant(gen, style, labels, "cuda")
-    torch.cuda.synchronize()
-    out["calibrate_gen_quant_ms"] = (time.perf_counter() - t0) * 1e3
-    log(f"  calibration: {out['calibrate_ms']:.3f} ms in all (a bf16 "
-        f"generate call, then prepare_vgg_quant "
-        f"{out['prepare_vgg_quant_ms']:.3f} ms and calibrate_gen_quant "
-        f"{out['calibrate_gen_quant_ms']:.3f} ms)")
 
     # (a) the int8 route against the bf16 route
     with torch.inference_mode():
@@ -1657,7 +1293,7 @@ def phase_int8(torch, card: str, counts, zero):
     if not all(exact.values()):
         raise AssertionError(f"int8 sums differ card vs CPU: {exact}")
 
-    # (b) timing: int8 and bf16 requests in turns
+    # (b) the int8 generate call, then int8 and bf16 requests in turns
     zero()
     run(style, labels)
     torch.cuda.synchronize()
@@ -1669,60 +1305,19 @@ def phase_int8(torch, card: str, counts, zero):
     out["launches_int8_generate_call"] = list(launched)
     run.base(style, labels)         # the float path's decoder graph
     zero()
-    walls = {"int8": [], "bf16": []}
     for _ in range(10):
-        for k, fn in (("int8", run), ("bf16", run.base)):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn(style, labels)
-            torch.cuda.synchronize()
-            walls[k].append(time.perf_counter() - t)
+        run(style, labels)
+        run.base(style, labels)
     # the int8 calls run the decoder eager, and the bf16 calls between
     # them replay its graph: none captures again
     if counts() != dec_launches(eager=10):
         raise AssertionError(f"10 int8 and 10 bf16 requests in turns "
                              f"launched {counts()}, not "
                              f"{dec_launches(eager=10)}")
-    for k in walls:
-        ms = statistics.median(walls[k]) * 1e3
-        out[f"{k}_request_ms"], out[f"{k}_imgs_per_s"] = ms, b / (ms / 1e3)
-    with torch.inference_mode():
-        pyramid = gen.encode_style(style_t)
-
-        def generate(mode):
-            def fn():
-                gen.dec.set_quant_mode(mode)
-                try:
-                    return gen.generate(pyramid, lab)
-                finally:
-                    gen.dec.set_quant_mode(None)
-            return fn
-
-        stages = {"G.generate int8": generate("static"),
-                  "G.generate bf16": generate(None),
-                  "R.trunk int8": lambda: vgg_quant_apply(run.qparams, x),
-                  "R.trunk bf16": lambda: rec.enc.vgg(
-                      x.expand(-1, 3, -1, -1))}
-        out["stages_ms"] = {k: cuda_ms(fn, iters=10, reps=2)
-                            for k, fn in stages.items()}
-    torch.cuda.reset_peak_memory_stats()
-    run(style, labels)
-    torch.cuda.synchronize()
-    out["int8_peak_gib"] = (torch.cuda.max_memory_allocated()
-                            - base_bytes) / 2**30
-    log(f"  1 x {b} words: int8 request {out['int8_request_ms']:.3f} ms "
-        f"({out['int8_imgs_per_s']:.1f} imgs/s), bf16 "
-        f"{out['bf16_request_ms']:.3f} ms ({out['bf16_imgs_per_s']:.1f} "
-        f"imgs/s), median of 10 in turns on {card}; int8 peak "
-        f"{out['int8_peak_gib']:.3f} GiB; int8 generate call launches "
-        f"{launched}")
-    for k, v in out["stages_ms"].items():
-        log(f"  stage {k:16s} {v:9.3f} ms")
-    kernel_ms, idle, n = traced(torch, lambda: run(style, labels), 3,
-                                out["int8_request_ms"], "int8 request")
-    out.update({"int8_kernel_ms": kernel_ms, "int8_idle_share": idle,
-                "int8_launches_per_request": n})
-    del run, gen, rec, pyramid
+    log(f"  1 x {labels.shape[0]} words: int8 generate call launches "
+        f"{launched}; 10 int8 and 10 bf16 requests in turns launched "
+        f"{counts()}")
+    del run, gen, rec
     torch.cuda.empty_cache()
     return out
 
@@ -1738,7 +1333,7 @@ def phase_int8_tools(torch, tmp: str):
     from affganwriting_torch.tools import ab_int8_cer, ab_int8_static
 
     log("  tools/ab_int8_static --batch 256:")
-    ab = ab_int8_static.main(["--batch", "256"])
+    ab_int8_static.main(["--batch", "256"])
     torch.cuda.empty_cache()
     log("  cli/bench --headline int8 --batch 256 --quick:")
     result = bench.main(["--headline", "int8", "--batch", "256", "--quick"])
@@ -1754,7 +1349,7 @@ def phase_int8_tools(torch, tmp: str):
             not cer["bf16"]["count"]:
         raise AssertionError(f"ab_int8_cer read {cer}")
     torch.cuda.empty_cache()
-    return {"ab_int8_static": ab, "bench_int8": result, "ab_int8_cer": cer}
+    return {"ab_int8_cer": cer}
 
 
 def _line_model(torch, seed: int, **kw):
@@ -1832,15 +1427,14 @@ def _noise_shapes(model, b: int, length: int):
     return shapes
 
 
-def phase_line_full(torch, card: str, counts, zero):
+def phase_line_full(torch, counts, zero):
     """11 (b) ``HWWithStyle`` at its published widths (80 classes, style
     128, generator 256, the cnn_only HWR with BatchNorm) with
     ``configs/cf_synth_charSpecMulti.json``'s ``char_style_dim`` 16 and
     ``max_gen_length`` 128, f32, random weights from the seed:
     ``extract_style`` on 16 lines of 64 x 512 with ``a_batch_size`` 2 and
-    ``generate`` of 16 lines (16, 1, 64, 512); median of 5 after a warm-up
-    each, peak memory (the model included, above what the phase found
-    allocated), parameters; no kernel launched."""
+    ``generate`` of 16 lines (16, 1, 64, 512); parameters; no kernel
+    launched."""
     from affganwriting_torch.core.line_config import load_config
 
     root = Path(__file__).resolve().parent
@@ -1849,7 +1443,6 @@ def phase_line_full(torch, card: str, counts, zero):
               char_style_dim=conf["model"]["char_style_dim"],
               max_gen_length=conf["model"]["max_gen_length"])
     a = conf["data_loader"]["a_batch_size"]
-    base_bytes = torch.cuda.memory_allocated()
     model = _line_model(torch, SEED, **kw).cuda()
     n_params = sum(p.numel() for p in model.parameters())
     img, label, lengths = _line_batch(torch, 16, 40, 512, 80, SEED)
@@ -1857,27 +1450,10 @@ def phase_line_full(torch, card: str, counts, zero):
     g = torch.Generator(device="cuda").manual_seed(SEED)
     out = {"params": n_params, **kw, "a_batch_size": a}
     zero()
-    torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
-        for what, fn in (
-                ("extract_style", lambda: model.extract_style(img, a)),
-                ("generate", lambda: model.generate(label, lengths, style,
-                                                    generator=g))):
-            res = fn()
-            if what == "extract_style":
-                style, pred = res
-            walls = []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t)
-            out[f"{what}_ms"] = statistics.median(walls) * 1e3
+        style, pred = model.extract_style(img, a)
         lines = model.generate(label, lengths, style, generator=g)
     torch.cuda.synchronize()
-    out["peak_gib"] = (torch.cuda.max_memory_allocated()
-                       - base_bytes) / 2**30
     out["launches"] = list(counts())
     d = kw["char_style_dim"]
     if tuple(style.shape) != (16, 128 + d + 80 * d) or \
@@ -1893,11 +1469,8 @@ def phase_line_full(torch, card: str, counts, zero):
         raise AssertionError(f"the line path launched {out['launches']}")
     log(f"  HWWithStyle {n_params / 1e6:.2f} M parameters (char_style_dim "
         f"{d}, max_gen_length {kw['max_gen_length']}): extract_style of "
-        f"16 x 64 x 512, a_batch_size {a}, {out['extract_style_ms']:.3f} "
-        f"ms; generate (16, 1, 64, 512) {out['generate_ms']:.3f} ms "
-        f"(medians of 5); HWR log-probs {tuple(pred.shape)}; peak "
-        f"{out['peak_gib']:.3f} GiB on {card}; kernel launches "
-        f"{out['launches']}")
+        f"16 x 64 x 512, a_batch_size {a}; generate (16, 1, 64, 512); HWR "
+        f"log-probs {tuple(pred.shape)}; kernel launches {out['launches']}")
     del model
     torch.cuda.empty_cache()
     return out
@@ -2104,29 +1677,6 @@ def _tree_rel_l2(got: dict, want: dict) -> float:
                       for w in want.values())) ** 0.5
 
 
-@contextlib.contextmanager
-def in_f64(*modules):
-    """The port's ``modules`` compute in f64 inside the block: parameters,
-    compute dtypes, and every ``.float()`` they take; the exact reference
-    that the f32 gradient checks here and in the tests rest on."""
-    import torch
-
-    for module in modules:
-        module.double()
-        for m in module.modules():
-            for attr in ("compute_dtype", "dtype"):
-                if getattr(m, attr, None) is torch.float32:
-                    setattr(m, attr, torch.float64)
-    as_f32 = torch.Tensor.float
-    torch.Tensor.float = lambda self, *a, **k: self.double()
-    torch.set_default_dtype(torch.float64)
-    try:
-        yield
-    finally:
-        torch.Tensor.float = as_f32
-        torch.set_default_dtype(torch.float32)
-
-
 def grad_check(what: str, card: dict, cpu: dict, f64: dict, card64: dict,
                tol: float) -> dict:
     """Per leaf of {name: gradient}: the card's f32 against the CPU's f64
@@ -2170,6 +1720,8 @@ def line_lesson_grads(torch, batch, f64: bool, device="cpu") -> dict:
     import copy
 
     from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from affganwriting_torch.train.parity import in_f64
 
     log = []
 
@@ -2337,21 +1889,16 @@ def _frozen_snapshot(state) -> dict:
     return sd
 
 
-def phase_line_train(torch, card: str, counts, zero):
+def phase_line_train(torch, counts, zero):
     """12 (b) ``LineGanTrainer`` at the published widths (80 classes, style
     128, generator 256, the cnn_only HWR with BatchNorm, D at dim 64, the
     default ``Autoencoder``) with ``configs/cf_synth_charSpecMulti.json``'s
     ``char_style_dim`` 16 and ``max_gen_length`` 128, f32, random weights
     from the seed, on synthetic lines (2 authors x ``a_batch_size`` 2, 64 x
-    512): one warm-up rotation of the seven-lesson curriculum, then two
-    timed (CUDA-synchronized wall per iteration, median per lesson), the
-    host part of a lesson on new lines (the HWR's log-probs to the host,
-    the DTW), and one ``validate`` batch; losses finite, the HWR (its BatchNorm
-    statistics included) and the AE bit-unchanged, D's ``u`` moved, the
-    no-step stash consumed at auto-gen; peak memory above the phase's
-    start; parameter counts; no kernel launched."""
-    import numpy as np
-
+    512): three rotations of the seven-lesson curriculum and one
+    ``validate`` batch; losses finite, the HWR (its BatchNorm statistics
+    included) and the AE bit-unchanged, D's ``u`` moved, the no-step stash
+    consumed at auto-gen; parameter counts; no kernel launched."""
     from affganwriting_torch.core.line_config import load_config
     from affganwriting_torch.data.lines import LineCharset, LineDataset
     from affganwriting_torch.train.line_trainer import LineGanTrainer
@@ -2359,8 +1906,6 @@ def phase_line_train(torch, card: str, counts, zero):
     root = Path(__file__).resolve().parent
     conf = load_config(str(root / "configs" / "cf_synth_charSpecMulti.json"))
     charset = LineCharset()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
     tr = LineGanTrainer(n_class=charset.n_class, style_dim=128,
                         max_gen_length=conf["model"]["max_gen_length"],
                         char_style_dim=conf["model"]["char_style_dim"],
@@ -2378,52 +1923,20 @@ def phase_line_train(torch, card: str, counts, zero):
     frozen = _frozen_snapshot(state)
     u0 = state.disc.sn_state()
     n_rot = len(tr.curriculum.stages[0][1])
-    walls: dict[str, list] = {}
     zero()
-    it = 0
     stash = []
-    for rot in range(3):
-        for _ in range(n_rot):
-            batch = next(batches)
-            lesson = ",".join(tr.curriculum.get_lesson(it))
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            state, metrics = tr.train_iteration(state, it, batch)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-            stash.append((lesson, tr._saved_grads is not None))
-            bad = {k: float(v) for k, v in metrics.items()
-                   if not math.isfinite(float(v))}
-            if bad or not metrics:
-                raise AssertionError(f"iteration {it} ({lesson}): metrics "
-                                     f"{ {k: float(v) for k, v in metrics.items()} }")
-            if rot:
-                walls.setdefault(lesson, []).append(wall)
-            it += 1
+    for it in range(3 * n_rot):
+        batch = next(batches)
+        lesson = ",".join(tr.curriculum.get_lesson(it))
+        state, metrics = tr.train_iteration(state, it, batch)
+        stash.append((lesson, tr._saved_grads is not None))
+        bad = {k: float(v) for k, v in metrics.items()
+               if not math.isfinite(float(v))}
+        if bad or not metrics:
+            raise AssertionError(f"iteration {it} ({lesson}): metrics "
+                                 f"{ {k: float(v) for k, v in metrics.items()} }")
     launches = list(counts())
-    # the host part of a count or auto-gen lesson on new lines: the frozen
-    # HWR's log-probs to the host, then the DTW alignment there
-    from affganwriting_torch.ops.dtw import correct_pred
-
-    hwr_ms, dtw_ms = [], []
-    for _ in range(3):
-        b = next(batches)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        logp = tr.recognize(state, b["image"])
-        t1 = time.perf_counter()
-        correct_pred(np.exp(logp).transpose(1, 0, 2), b["label"].T[
-            : max(1, int(b["label_lengths"].max()))])
-        t2 = time.perf_counter()
-        hwr_ms.append((t1 - t) * 1e3)
-        dtw_ms.append((t2 - t1) * 1e3)
-    val_batch = next(batches)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    val = tr.validate(state, iter([val_batch]))
-    torch.cuda.synchronize()
-    val_ms = (time.perf_counter() - t) * 1e3
-    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    val = tr.validate(state, iter([next(batches)]))
     changed = [k for k, v in _frozen_snapshot(state).items()
                if not torch.equal(v, frozen[k])]
     if changed:
@@ -2441,38 +1954,27 @@ def phase_line_train(torch, card: str, counts, zero):
                              f"{launches}")
     if not all(math.isfinite(v) for v in val.values()):
         raise AssertionError(f"validate {val}")
-    ms = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
     log(f"  LineGanTrainer at full width (char_style_dim "
         f"{conf['model']['char_style_dim']}, max_gen_length "
-        f"{conf['model']['max_gen_length']}, 4 lines of 64 x 512), median ms "
-        "of two timed rotations: " + ", ".join(
-            f"{k} {v:.3f}" for k, v in ms.items())
-        + f"; validate (1 batch) {val_ms:.3f} ms; rotation "
-        f"{sum(statistics.median(v) * len(v) / 2 for v in walls.values()) * 1e3:.3f} ms")
-    log(f"  a count lesson's host part on 4 new lines: the HWR's log-probs "
-        f"to the host {statistics.median(hwr_ms):.3f} ms, the DTW "
-        f"{statistics.median(dtw_ms):.3f} ms (medians of 3)")
-    log(f"  parameters {counts_p}; peak {peak:.3f} GiB on {card}; HWR, its "
-        f"BatchNorm statistics and the AE bit-unchanged ({len(frozen)} "
-        f"tensors); D's u moved; stash {stash[:n_rot]}; kernel launches "
-        f"{launches}")
-    out = {"lesson_ms": ms, "validate_ms": val_ms, "peak_gib": peak,
-           "hwr_to_host_ms": statistics.median(hwr_ms),
-           "dtw_ms": statistics.median(dtw_ms),
-           "params": counts_p, "launches": launches, "val": val}
+        f"{conf['model']['max_gen_length']}, 4 lines of 64 x 512): "
+        f"{3 * n_rot} iterations, losses finite; validate (1 batch) {val}")
+    log(f"  parameters {counts_p}; HWR, its BatchNorm statistics and the AE "
+        f"bit-unchanged ({len(frozen)} tensors); D's u moved; stash "
+        f"{stash[:n_rot]}; kernel launches {launches}")
+    out = {"params": counts_p, "launches": launches, "val": val}
     del tr, state
     torch.cuda.empty_cache()
     return out
 
 
-def phase_line_clis(torch, card: str, tmp: str, counts, zero):
+def phase_line_clis(torch, tmp: str, counts, zero):
     """12 (c) The user's path through the CLIs, on the card, in ``tmp``:
     ``cli/train_line --config configs/cf_synth_charSpecMulti.json`` for one
     rotation (7 iterations, SWA from 5, validation and a sheet at 7, a save
     of ``latest``), its checkpoint restored bit for bit (Adam, SWA and
     iteration included), then resumed for 2 iterations more;
     ``validate``; ``cli/get_styles`` from the checkpoint; ``generate_lines``
-    of 16 texts in library styles (median of 5 after a warm-up); and
+    of 16 texts in library styles; and
     ``serve/app.py --selftest`` on the checkpoint (the image finite, its
     PNG bytes decoded back by ``utils/png``'s zlib reader to the same
     page).  Kernel launches of the generate call counted."""
@@ -2500,18 +2002,12 @@ def phase_line_clis(torch, card: str, tmp: str, counts, zero):
             "--val-batches", "1", "--sheet-every", "7",
             "--restart-rss-gb", "0", "--logdir", logdir]
     out = {}
-    t = time.perf_counter()
-    _, st = train_line.main(base + ["-a", "trainer.iterations=7"])
-    torch.cuda.synchronize()
-    out["train_7_s"] = time.perf_counter() - t
+    train_line.main(base + ["-a", "trainer.iterations=7"])
     saved = LineCheckpointManager(ckdir).load("latest", "cpu")
     if saved["iteration"] != 7 or saved["swa"]["count"] != 3:
         raise AssertionError(f"latest: iteration {saved['iteration']}, SWA "
                              f"count {saved['swa']['count']}")
-    t = time.perf_counter()
     tr, payload = restore_line_trainer(ckdir)
-    torch.cuda.synchronize()
-    out["restore_s"] = time.perf_counter() - t
     again = line_payload(payload)
     fields = _compare_payloads(torch, _to_cpu(torch, again), saved)
     lines = [json.loads(s) for s in open(f"{logdir}/metrics.jsonl")]
@@ -2520,51 +2016,32 @@ def phase_line_clis(torch, card: str, tmp: str, counts, zero):
             if k not in ("group", "step", "time")):
         raise AssertionError(f"metrics {lines}")
     sheets = os.listdir(os.path.join(logdir, "sheets"))
-    t = time.perf_counter()
     charset = LineCharset()
     val = tr.validate(payload["state"], LineDataset(
         charset, a_batch_size=2, width=512, seed=SEED + 1).batches(2),
         max_batches=1)
-    out["validate_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    _, st2 = train_line.main(base + ["-a", "trainer.iterations=9"])
-    torch.cuda.synchronize()
-    out["resume_2_s"] = time.perf_counter() - t
+    train_line.main(base + ["-a", "trainer.iterations=9"])
     resumed = LineCheckpointManager(ckdir).load("latest", "cpu")
     if resumed["iteration"] != 9 or resumed["swa"]["count"] != 5:
         raise AssertionError(f"resumed latest: iteration "
                              f"{resumed['iteration']}, SWA count "
                              f"{resumed['swa']['count']}")
     lib_path = os.path.join(tmp, "styles.pkl")
-    t = time.perf_counter()
     library = get_styles.main(["--ckpt", ckdir, "--out", lib_path,
                                "--n-authors", "8", "--width", "512",
                                "--eval-writer-id"])
-    torch.cuda.synchronize()
-    out["get_styles_s"] = time.perf_counter() - t
     tr, payload = restore_line_trainer(ckdir, name="best" if os.path.exists(
         os.path.join(ckdir, "best")) else "latest")
     texts = [" ".join(WORDS[i % 8: i % 8 + 3]) for i in range(16)]
     styles = library.styles[np.arange(16) % len(library.styles)]
-    generate_lines(tr, payload["state"], texts, styles, charset)
     zero()
     lines_out = generate_lines(tr, payload["state"], texts, styles, charset)
     out["launches_generate_call"] = list(counts())
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        generate_lines(tr, payload["state"], texts, styles, charset)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-    out["generate_16_ms"] = statistics.median(walls) * 1e3
     if lines_out.shape != (16, 64, 4 * tr.max_gen_length, 1) or \
             not np.isfinite(lines_out).all():
         raise AssertionError(f"generate_lines {lines_out.shape}")
     del tr, payload
-    t = time.perf_counter()
     res = app.main(["--selftest", "--ckpt", ckdir])
-    out["selftest_s"] = time.perf_counter() - t
     decoded = decode_gray_png(res["png"])
     if res["image"].shape[:2] != (1, 64) or \
             not np.isfinite(res["image"]).all() or \
@@ -2574,16 +2051,13 @@ def phase_line_clis(torch, card: str, tmp: str, counts, zero):
     if out["launches_generate_call"] != [0, 0, 0]:
         raise AssertionError(f"generate_lines launched "
                              f"{out['launches_generate_call']}")
-    log(f"  train_line --config cf_synth_charSpecMulti: 7 iterations "
-        f"{out['train_7_s']:.1f} s (build, first call and saves included); "
-        f"restore {out['restore_s']:.2f} s, bit-equal to the save in "
-        f"{fields} fields (Adam, SWA count 3, iteration 7); sheets "
-        f"{sorted(sheets)}; resume for 2 more {out['resume_2_s']:.1f} s "
-        f"(iteration 9, SWA count 5); validate {val}; get_styles "
-        f"{len(library.styles)} styles in {out['get_styles_s']:.1f} s; "
-        f"generate_lines 16 x (64, {4 * 128}) {out['generate_16_ms']:.3f} "
-        f"ms (median of 5) on {card}, launches "
-        f"{out['launches_generate_call']}; selftest {res['image'].shape}, "
+    log(f"  train_line --config cf_synth_charSpecMulti: 7 iterations; "
+        f"restore bit-equal to the save in {fields} fields (Adam, SWA "
+        f"count 3, iteration 7); sheets {sorted(sheets)}; resumed for 2 "
+        f"more (iteration 9, SWA count 5); validate {val}; get_styles "
+        f"{len(library.styles)} styles; generate_lines 16 x (64, "
+        f"{4 * 128}), launches {out['launches_generate_call']}; selftest "
+        f"{res['image'].shape}, "
         f"PNG {len(res['png'])} bytes decoded equal, emuru "
         f"{res['emuru'][:40]}")
     out.update(fields=fields, validate=val, styles=len(library.styles),
@@ -2620,42 +2094,13 @@ def phase_entry_and_benches(torch, counts, zero):
     log(f"  entry(): images {tuple(images.shape)} {images.dtype}, launches "
         f"{c}")
     log("  cli/bench --batch 256 --quick:")
-    result = bench.main(["--batch", "256", "--quick"])
+    bench.main(["--batch", "256", "--quick"])
     log("  cli/bench_kernels --batch 256:")
     lines = bench_kernels.main(["--batch", "256"])
-    return {"entry_launches": list(c), "bench": result,
-            "bench_kernels": lines}
-
-
-def _host_parts(torch, trainer) -> dict:
-    """Two host-side parts of a trainer epoch, timed alone on the card: one
-    batch's upload (``to_device_batch`` of the numpy batch, median of 5)
-    and the post-epoch CER pass of a 2-step epoch (6 ``cer_counts`` calls
-    on (B, T - 1) ids against (B, T) labels)."""
-    from affganwriting_torch.eval.cer import CERAccumulator
-    from affganwriting_torch.train.step import to_device_batch
-
-    batch = next(trainer.train_data.batches(epoch=8))
-    dev = trainer.device
-    ups = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        to_device_batch(batch, dev)
-        torch.cuda.synchronize()
-        ups.append(time.perf_counter() - t)
-    ids = torch.randint(0, 55, batch["label_xt"][:, 1:].shape, device=dev)
-    gt = torch.as_tensor(batch["label_xt"], device=dev)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(6):
-        CERAccumulator().add(ids, gt)
-    torch.cuda.synchronize()
-    cer_s = time.perf_counter() - t
-    up = statistics.median(ups)
-    log(f"  host parts: a batch's upload {up * 1e3:.3f} ms (median of 5), "
-        f"the CER pass of a 2-step epoch {cer_s * 1e3:.3f} ms")
-    return {"upload_ms": up * 1e3, "cer_pass_ms": cer_s * 1e3}
+    if [r["kernel"] for r in lines] != ["in_relu", "in_relu", "phase_head",
+                                        "phase_head"]:
+        raise AssertionError(f"bench_kernels --batch 256: {lines}")
+    return {"entry_launches": list(c)}
 
 
 def _until_end(row, end):
@@ -2728,6 +2173,7 @@ def pretrain_grads(torch, what: str, f64: bool, device="cpu") -> dict:
     from affganwriting_torch.cli import train_hwr
     from affganwriting_torch.train.auto_trainer import AutoTrainer
     from affganwriting_torch.train.line_trainer import ctc_loss
+    from affganwriting_torch.train.parity import in_f64
 
     charset, batch = _pretrain_batch()
     x = torch.as_tensor(batch["image"], device=device).permute(0, 3, 1, 2)
@@ -2805,7 +2251,7 @@ def _pretrain_batch():
     return charset, next(ds.batches(8))
 
 
-def phase_hwr_pretrain(torch, card: str, tmp: str) -> dict:
+def phase_hwr_pretrain(torch, tmp: str) -> dict:
     """13 (a) ``cli/train_hwr`` at its published widths (``CNNOnlyHWR``,
     BatchNorm, the ``LineCharset``'s 80 classes, 8 lines of 64 x 512): one
     f32 step on the card against the CPU from one state (warmed Adam;
@@ -2837,27 +2283,23 @@ def phase_hwr_pretrain(torch, card: str, tmp: str) -> dict:
     out = {"check": _pretrain_step_check(torch, "train_hwr", run,
                                          lambda m: m)}
     logdir = os.path.join(tmp, "hwr")
-    t = time.perf_counter()
     _, path = train_hwr.main(["--iterations", "20", "--batch-size", "8",
                               "--logdir", logdir, "--save-every", "10",
                               "--log-every", "10"])
-    torch.cuda.synchronize()
-    out["cli_20_s"] = time.perf_counter() - t
     saved = load_swapped(path)
     lines = [json.loads(s) for s in open(f"{logdir}/metrics.jsonl")]
     if set(saved) != {"params", "batch_stats"} or len(lines) != 2 or \
             not all(math.isfinite(r["ctc"]) for r in lines):
         raise AssertionError(f"hwr_final {sorted(saved)}, metrics {lines}")
     out["ctc"] = [r["ctc"] for r in lines]
-    log(f"  cli/train_hwr 20 iterations of 8 x 64 x 512 (bf16 compute): "
-        f"{out['cli_20_s']:.1f} s with its saves on {card}; ctc "
+    log(f"  cli/train_hwr 20 iterations of 8 x 64 x 512 (bf16 compute): ctc "
         f"{out['ctc']}; hwr_final {len(saved['params'])} parameters, "
         f"{len(saved['batch_stats'])} statistics")
     out["path"] = path
     return out
 
 
-def phase_auto_pretrain(torch, card: str, tmp: str) -> dict:
+def phase_auto_pretrain(torch, tmp: str) -> dict:
     """13 (b) ``cli/train_auto`` at its published widths (the 2tight AE
     with the E_HWR head at 80 classes, 8 lines of 64 x 512, L1 + CTC):
     one f32 step of ``AutoTrainer`` on the card against the CPU from one
@@ -2885,12 +2327,9 @@ def phase_auto_pretrain(torch, card: str, tmp: str) -> dict:
     out = {"check": _pretrain_step_check(torch, "AutoTrainer", run,
                                          lambda st: st.ae)}
     logdir = os.path.join(tmp, "auto")
-    t = time.perf_counter()
     _, _, path = train_auto.main(["--iterations", "20", "--batch-size", "8",
                                   "--logdir", logdir, "--save-every", "10",
                                   "--log-every", "10"])
-    torch.cuda.synchronize()
-    out["cli_20_s"] = time.perf_counter() - t
     saved = load_swapped(path)
     lines = [json.loads(s) for s in open(f"{logdir}/metrics.jsonl")]
     if set(saved) != {"params"} or not any(
@@ -2899,16 +2338,15 @@ def phase_auto_pretrain(torch, card: str, tmp: str) -> dict:
                                        for r in lines):
         raise AssertionError(f"ae_final {sorted(saved)}, metrics {lines}")
     out["ae_loss"] = [r["ae_loss"] for r in lines]
-    log(f"  cli/train_auto 20 iterations of 8 x 64 x 512: "
-        f"{out['cli_20_s']:.1f} s with its saves on {card}; ae_loss "
+    log(f"  cli/train_auto 20 iterations of 8 x 64 x 512: ae_loss "
         f"{out['ae_loss']}; ae_final {len(saved['params'])} tensors (E_HWR "
         f"included)")
     out["path"] = path
     return out
 
 
-def phase_line_pretrained(torch, card: str, tmp: str, hwr_path: str,
-                          ae_path: str, counts, zero) -> dict:
+def phase_line_pretrained(torch, tmp: str, hwr_path: str, ae_path: str,
+                          counts, zero) -> dict:
     """13 (c)-(e) ``cli/train_line --config
     configs/cf_synth_charSpecMulti.json`` with ``--pretrained-hwr``,
     ``--pretrained-ae`` and ``--xml-root`` on an IAM-format checkout
@@ -2943,7 +2381,6 @@ def phase_line_pretrained(torch, card: str, tmp: str, hwr_path: str,
     ckdir = os.path.join(logdir, "ckpt")
     root = Path(__file__).resolve().parent
     out = {}
-    t = time.perf_counter()
     tr, st = train_line.main([
         "--config", str(root / "configs" / "cf_synth_charSpecMulti.json"),
         "-a", "trainer.iterations=7", "-a", "trainer.save_step_minor=7",
@@ -2951,18 +2388,13 @@ def phase_line_pretrained(torch, card: str, tmp: str, hwr_path: str,
         "--sheet-every", "0", "--restart-rss-gb", "0", "--logdir", logdir,
         "--pretrained-hwr", hwr_path, "--pretrained-ae", ae_path,
         "--xml-root", xml_dir, "--image-root", iam])
-    torch.cuda.synchronize()
-    out["train_7_s"] = time.perf_counter() - t
     if next(st.model.hwr.parameters()).device.type != "cuda" or \
             not same(st.model.hwr.state_dict(), hwr) or \
             not same(st.ae.state_dict(), ae):
         raise AssertionError("train_line: the HWR or AE is not the "
                              "pretrained file")
     saved = LineCheckpointManager(ckdir).load("latest", "cpu")
-    t = time.perf_counter()
     tr2, payload = restore_line_trainer(ckdir)
-    torch.cuda.synchronize()
-    out["restore_s"] = time.perf_counter() - t
     fields = _compare_payloads(torch, _to_cpu(torch, line_payload(payload)),
                                saved)
     if tr2.pretrained_hwr != hwr_path or tr2.pretrained_ae != ae_path or \
@@ -2978,25 +2410,20 @@ def phase_line_pretrained(torch, card: str, tmp: str, hwr_path: str,
     log(f"  train_line --config cf_synth_charSpecMulti --pretrained-hwr "
         f"--pretrained-ae --xml-root: HWR ({len(hwr)} tensors) and AE "
         f"({len(ae)}, E_HWR dropped) bit-equal to the files on the card; 7 "
-        f"iterations on IAM-format lines {out['train_7_s']:.1f} s (build "
-        f"and saves included) on {card}; restore {out['restore_s']:.2f} s, "
-        f"bit-equal to the save in {fields} fields")
+        f"iterations on IAM-format lines; restore bit-equal to the save in "
+        f"{fields} fields")
     del tr, st, tr2, payload
     for name, extra in (("synthetic", ["--width", "512"]),
                         ("xml_root", ["--xml-root", xml_dir, "--image-root",
                                       iam])):
-        t = time.perf_counter()
         res = evaluate_line.main(["--ckpt", ckdir, "--ckpt-name", "latest",
                                   "--max-batches", "2"] + extra)
-        torch.cuda.synchronize()
-        out[f"evaluate_{name}_s"] = time.perf_counter() - t
         if not {"rec_cer", "gen_cer", "recon_l1", "wer", "top1",
                 "top5"} <= set(res) or not all(
                     math.isfinite(v) for v in res.values()):
             raise AssertionError(f"evaluate_line {name}: {res}")
         out[f"evaluate_{name}"] = res
-        log(f"  evaluate_line ({name}) {out[f'evaluate_{name}_s']:.1f} s: "
-            f"{json.dumps(res, sort_keys=True)}")
+        log(f"  evaluate_line ({name}): {json.dumps(res, sort_keys=True)}")
     repl = os.path.join(tmp, "repl")
     script = ";".join([
         "a", "r", "2", "hello there", "s", "0", "v", "2", "gaussian", "m",
@@ -3004,10 +2431,7 @@ def phase_line_pretrained(torch, card: str, tmp: str, hwr_path: str,
         os.path.join(repl, "interp0.png"), os.path.join(repl, "interp1.png"),
         "transfer", "u", "h", "q"])
     zero()
-    t = time.perf_counter()
     line_repl.main(["--ckpt", ckdir, "--out", repl, "--script", script])
-    torch.cuda.synchronize()
-    out["repl_s"] = time.perf_counter() - t
     names = set(os.listdir(repl))
     want = {"interp0.png", "interp1.png", "vae0.png", "vae1.png",
             "math.png", "average.png", "rand0.png", "rand1.png",
@@ -3021,38 +2445,50 @@ def phase_line_pretrained(torch, card: str, tmp: str, hwr_path: str,
                              f"{mturk}, launches {counts()}")
     out["repl_files"] = len(names)
     log(f"  line_repl --script (a r s v m A R t f u h q): {len(names)} "
-        f"entries in {out['repl_s']:.1f} s, launches {counts()}")
+        f"entries, launches {counts()}")
     return out
 
 
-def phase_profilers(torch, card: str, counts, zero, kernel_rows) -> dict:
+def _upchain_work(batch: int) -> dict:
+    """The work the decoder's kernels must do in one ``up_chain`` call of
+    64x216 words at ``batch`` in bf16, as ``cli/bench_kernels`` bounds
+    them: ``in_relu`` reads and writes its two planes once, ``phase_head``
+    reads xp, the folded kernel and the bias and writes the image once."""
+    in_relu = sum(2 * 2 * batch * c * h * w
+                  for c, h, w in ((256, 16, 54), (128, 32, 108)))
+    c4, h, w = 256, 32, 108
+    head = 2 * (batch * c4 * (h + 4) * (w + 4) + c4 * 100
+                + batch * 4 * h * w) + 4 * 4
+    return {"flops": float(2 * c4 * 100 * h * w * batch),
+            "bytes": float(in_relu + head)}
+
+
+def phase_profilers(torch, tmp: str, counts, zero) -> dict:
     """13 (f) ``cli/profile_pipeline --batch 256 --train-batch 8`` and
     ``cli/profile_gen --batch 256`` (10-call streams), their JSON lines;
     the launches of one ``profile_gen --stages upchain`` and one
     ``profile_pipeline --stages generate`` call; one ``up_chain`` call
-    traced with ``torch.profiler``, its kernels counted by name; and the
-    work its kernels report to the profilers' counts
-    (``ops/cuda_build.work_counter``), equal to phase 5's bound inputs
-    (``kernel_rows``: the ``bytes`` and ``ops`` at batch 256)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    inside ``utils/profiling.trace``, its Chrome trace written and its
+    kernels counted by name; and the work its kernels report to the
+    profilers' counts (``ops/cuda_build.work_counter``), equal to the
+    bound inputs of ``cli/bench_kernels`` at batch 256
+    (``_upchain_work``)."""
+    import os
 
     from affganwriting_torch.cli import profile_gen, profile_pipeline
     from affganwriting_torch.core.config import default_config
     from affganwriting_torch.gen.inference import build_generator
     from affganwriting_torch.ops.cuda_build import work_counter
+    from affganwriting_torch.utils.profiling import trace
 
-    out = {}
-    t = time.perf_counter()
-    out["pipeline"] = profile_pipeline.main(
+    rows = profile_pipeline.main(
         ["--batch", "256", "--train-batch", "8", "--n-stream", "10"])
-    out["pipeline_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    out["gen"] = profile_gen.main(["--batch", "256", "--n-stream", "10"])
-    out["gen_s"] = time.perf_counter() - t
-    for row in out["pipeline"] + out["gen"]:
+    rows += profile_gen.main(["--batch", "256", "--n-stream", "10"])
+    for row in rows:
         if row["device"].split(" (")[0] != torch.cuda.get_device_name(0) or \
                 not (0 < row["mfu"] < 1 and 0 < row["hbm_frac"]):
             raise AssertionError(f"profiler row {row}")
+    out = {}
     # the decoder forwards the host runs in one CLI call: ``up_chain`` is
     # eager in its warm call, the 10-call stream and the counted call;
     # profile_pipeline's generate stage captures the decoder's graph once
@@ -3076,45 +2512,41 @@ def phase_profilers(torch, card: str, counts, zero, kernel_rows) -> dict:
     x = torch.randn(256, 512, 8, 27, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(SEED)
                     ).to(torch.bfloat16)
-    # a warm-up step, then the counted one: a profile of the call alone
-    # once recorded ``in_relu`` 0 of 2 times and ``phase_head`` 1 of 1,
-    # the call's first kernels missing while CUPTI started; the events
-    # are read when the active step ends, before the profiler clears them
-    seen = []
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-            schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-            on_trace_ready=lambda p: seen.append(p.key_averages())) as prof:
-        for _ in range(2):
-            gen.dec.up_chain(x)
-            torch.cuda.synchronize()
-            prof.step()
-    if len(seen) != 1:
-        raise AssertionError(f"torch.profiler ended {len(seen)} active "
-                             "steps, not 1")
-    traced = {k: sum(e.count for e in seen[0]
+    # a trace of the call alone once held ``in_relu`` 0 of 2 times and
+    # ``phase_head`` 1 of 1, the call's first kernels missing while CUPTI
+    # started: other kernels run first inside the trace
+    logdir = os.path.join(tmp, "trace13f")
+    with torch.inference_mode(), trace(logdir) as prof:
+        y = x[:1].float()
+        for _ in range(20):
+            y = y * 1.0
+        torch.cuda.synchronize()
+        gen.dec.up_chain(x)
+        torch.cuda.synchronize()
+    if not os.path.getsize(os.path.join(logdir, "trace.pt.trace.json")):
+        raise AssertionError("utils/profiling.trace wrote no Chrome trace")
+    seen = prof.key_averages()
+    traced = {k: sum(e.count for e in seen
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and name in e.key)
               for k, name in (("in_relu", "in_relu_kernel"),
                               ("phase_head", "phase_head_wgmma_kernel"))}
     out["traced_upchain_kernels"] = traced
     if traced != {"in_relu": 2, "phase_head": 1}:
-        raise AssertionError(f"torch.profiler saw {traced} in up_chain")
+        raise AssertionError(f"the trace saw {traced} in up_chain")
     with torch.inference_mode(), work_counter() as work:
         gen.dec.up_chain(x)
-    want = {"flops": float(kernel_rows["phase_head"]["ops"]),
-            "bytes": float(kernel_rows["in_relu"]["bytes"]
-                           + kernel_rows["phase_head"]["bytes"])}
+    want = _upchain_work(256)
     out["upchain_kernel_work"] = work
     if work != want:
         raise AssertionError(f"up_chain's kernels reported {work}, not "
                              f"{want}")
-    log(f"  profile_pipeline {out['pipeline_s']:.1f} s, profile_gen "
-        f"{out['gen_s']:.1f} s on {card}; launches of one --stages upchain "
+    log(f"  profile_pipeline and profile_gen: {len(rows)} rows; launches "
+        f"of one --stages upchain "
         f"call {out['launches_profile_gen_upchain']} (12 up_chain calls), "
         f"of one --stages generate call "
         f"{out['launches_profile_pipeline_generate']} (13 generate calls); "
-        f"torch.profiler in one up_chain call: {traced}; its kernels' "
+        f"the trace of one up_chain call: {traced}; its kernels' "
         f"work in the profilers' counts {work['flops'] / 1e9:.2f} GFLOP, "
         f"{work['bytes'] / 1e9:.3f} GB")
     del gen
@@ -3146,11 +2578,10 @@ MESH_LINE_GRAD_TOL = 1e-2
 MESH_LINE_LEAF_TOL = 0.1
 
 
-def _mesh_serve(torch, rank: int, card: str) -> dict:
+def _mesh_serve(torch, rank: int) -> dict:
     """14b on one rank: the sharded pipeline at data=2 on the full
     request, launches, parity with this rank's unsharded call, the kernels
-    at this rank's shapes against their plain versions, CUDA-event
-    times."""
+    at this rank's shapes against their plain versions."""
     import numpy as np
 
     from affganwriting_torch.core.config import default_config
@@ -3212,32 +2643,10 @@ def _mesh_serve(torch, rank: int, card: str) -> dict:
     if not good:
         raise AssertionError(f"rank {rank}: phase_head batch 128 max|err| {e}")
     kerr["phase_head(128, 256, 36, 112)"] = e
-    # device time of this rank's call, the gather included, and of its
-    # share alone (CUDA events, median of 5 after 2 warm-ups)
-    placed = (run.place(style), run.shard_labels(labels))
-
-    def event_ms(fn):
-        for _ in range(2):
-            fn()
-        out = []
-        for _ in range(5):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            out.append(a.elapsed_time(b))
-        return statistics.median(out)
-
-    call_ms = event_ms(lambda: run(style, labels))
-    local_ms = event_ms(lambda: run.local(*placed))
     return {"launches": launches, "max_abs_err": err, "token_flips": flips,
-            "kernel_max_abs_err": kerr, "call_ms": call_ms,
-            "local_ms": local_ms, "words": len(MESH_WORDS),
+            "kernel_max_abs_err": kerr, "words": len(MESH_WORDS),
             "strip_rows": {"batch_128": strip_rows(128, 32, sms),
-                           "batch_256": strip_rows(256, 32, sms)},
-            "card": card}
+                           "batch_256": strip_rows(256, 32, sms)}}
 
 
 def _state_tensors(torch, state) -> dict:
@@ -3278,12 +2687,9 @@ def _mesh_step(torch, rank: int) -> dict:
             shard_state(mesh, state)
             b = shard_batch(mesh, b)
         step = make_phased_train_step(cfg, merge_dg=cfg.merge_dg, mesh=mesh)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         state, m, _ = step(state, b, torch.Generator("cuda").manual_seed(1))
-        torch.cuda.synchronize()
         return ({k: float(v) for k, v in m.items()},
-                _state_tensors(torch, state), time.perf_counter() - t0)
+                _state_tensors(torch, state))
 
     def diffs(got, want):
         """(|loss diffs|, max |diff| per player and of the BN stats)."""
@@ -3303,7 +2709,7 @@ def _mesh_step(torch, rank: int) -> dict:
     out = {}
     for name, shape in (("data2", (2, 1)), ("data1_model2", (1, 2))):
         got = one_step(make_mesh(*shape, device="cuda:0"), batch)
-        res = {"step_wall_s": got[2], "checksum": float(sum(
+        res = {"checksum": float(sum(
             v.double().sum() for v in got[1].values()))}
         if ref is not None:
             loss_d, worst = diffs(got, ref)
@@ -3396,7 +2802,7 @@ def _mesh_line(torch, rank: int) -> dict:
     return out
 
 
-def _mesh_rank(rank: int, world: int, init: str, card: str) -> None:
+def _mesh_rank(rank: int, world: int, init: str) -> None:
     """One of the two ranks of phases 14b-d: gloo over CUDA tensors, both
     ranks on the one card."""
     import torch
@@ -3411,19 +2817,17 @@ def _mesh_rank(rank: int, world: int, init: str, card: str) -> None:
                      world_size=world, timeout_s=300)
     cuda_build.library()      # the parent's build
     out = {"rank": rank}
-    for key, fn in (("serve", lambda: _mesh_serve(torch, rank, card)),
+    for key, fn in (("serve", lambda: _mesh_serve(torch, rank)),
                     ("step", lambda: _mesh_step(torch, rank)),
                     ("line", lambda: _mesh_line(torch, rank))):
-        t0 = time.perf_counter()
         out[key] = fn()
-        out[key]["seconds"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
     print("PHASE14 " + json.dumps(out), flush=True)
     dist.barrier()
     dist.destroy_process_group()
 
 
-def phase_mesh_world1(torch, card: str, tmp: str, counts, zero) -> dict:
+def phase_mesh_world1(torch, tmp: str, counts, zero) -> dict:
     """(a) NCCL at world 1: the sharded pipeline on a 1x1 mesh, bit-equal
     to the unsharded call; then ``generate_word --mesh auto`` under
     ``torch.distributed.run`` against ``--mesh none``."""
@@ -3488,10 +2892,10 @@ def phase_mesh_world1(torch, card: str, tmp: str, counts, zero) -> dict:
     log(f"  generate_word --mesh auto (torch.distributed.run, 1 process) "
         f"and --mesh none wrote the same {len(files)} files, byte for byte")
     return {"launches_sharded_call": list(launches),
-            "cli_files_equal": len(files), "card": card}
+            "cli_files_equal": len(files)}
 
 
-def phase_mesh_two_ranks(torch, card: str) -> dict:
+def phase_mesh_two_ranks(torch) -> dict:
     """(b)-(d) on two ranks sharing the card over gloo."""
     import os
 
@@ -3499,16 +2903,16 @@ def phase_mesh_two_ranks(torch, card: str) -> dict:
 
     # one string-hash seed: the synthetic lines seed from hash(author), and
     # every rank renders the global batch
-    outs = spawn("chip_smoke:_mesh_rank", 2, card, timeout_s=600,
+    outs = spawn("chip_smoke:_mesh_rank", 2, timeout_s=600,
                  env={**os.environ, "PYTHONHASHSEED": "0"},
                  cwd=str(Path(__file__).resolve().parent))
     ranks = [json.loads(next(x for x in o.splitlines()
                              if x.startswith("PHASE14 "))[8:]) for o in outs]
-    check_mesh_ranks(ranks, card)
+    check_mesh_ranks(ranks)
     return {"ranks": ranks}
 
 
-def check_mesh_ranks(ranks: list, card: str) -> None:
+def check_mesh_ranks(ranks: list) -> None:
     """Print and hold the two ranks' phase 14b-d results."""
     for r in ranks:
         s = r["serve"]
@@ -3517,9 +2921,7 @@ def check_mesh_ranks(ranks: list, card: str) -> None:
             f"{s['launches'][1]}; images max|err| {s['max_abs_err']:.3g} vs "
             f"the unsharded call, token flips {s['token_flips']:.4f}; "
             f"kernels vs plain {s['kernel_max_abs_err']}; strip rows "
-            f"{s['strip_rows']}; call {s['call_ms']:.3f} ms (gather "
-            f"included), its share {s['local_ms']:.3f} ms (CUDA events, "
-            f"median of 5) on {card}")
+            f"{s['strip_rows']}")
     step, line = ranks[0]["step"], ranks[0]["line"]
     for name in ("data2", "data1_model2"):
         res = step[name]
@@ -3528,8 +2930,7 @@ def check_mesh_ranks(ranks: list, card: str) -> None:
             f"max|diff| { {k: f'{v:.2g}' for k, v in res['max_abs_diff'].items()} }; "
             f"the one-process floor (rows reversed): |loss diff| "
             f"{ {k: f'{v:.2g}' for k, v in res['floor_loss_diff'].items()} }, "
-            f"max|diff| { {k: f'{v:.2g}' for k, v in res['floor_max_abs_diff'].items()} }; "
-            f"one step {res['step_wall_s']:.3f} s wall on {card}")
+            f"max|diff| { {k: f'{v:.2g}' for k, v in res['floor_max_abs_diff'].items()} }")
         if res["fails"]:
             raise AssertionError(f"word step {name} on the mesh: {res['fails']}")
         other = ranks[1]["step"][name]["checksum"]
@@ -3544,7 +2945,6 @@ def check_mesh_ranks(ranks: list, card: str) -> None:
         raise AssertionError(f"line lessons on the mesh: {line['fails']}")
     if ranks[1]["line"]["checksum"] != line["checksum"]:
         raise AssertionError("line lessons: the ranks' trees differ")
-
 
 
 # ---- phase 15: batch invariance ------------------------------------------
@@ -3713,19 +3113,13 @@ def batch_invariance_pipeline(torch) -> dict:
 
 
 def phase_batch_invariance(torch, ckpt: str) -> dict:
-    """15: (a) the kernels' gate, (b) the pipeline's reading, (c)
-    ``cli/bench_kernels --iters 5``, (d) ``tools/ab_subpixel_quality`` on
-    phase 7's ``best`` (2 + 1 epochs: not trained)."""
-    from affganwriting_torch.cli import bench_kernels
+    """15: (a) the kernels' gate, (b) the pipeline's reading, (d)
+    ``tools/ab_subpixel_quality`` on phase 7's ``best`` (2 + 1 epochs: not
+    trained)."""
     from affganwriting_torch.tools import ab_subpixel_quality
 
     kernels = batch_invariance_kernels(torch)
     pipeline = batch_invariance_pipeline(torch)
-    log("  [15c] cli/bench_kernels --iters 5:")
-    lines = bench_kernels.main(["--iters", "5"])
-    if [r["kernel"] for r in lines] != ["in_relu", "in_relu", "phase_head",
-                                        "phase_head"]:
-        raise AssertionError(f"bench_kernels --iters 5: {lines}")
     log("  [15d] tools/ab_subpixel_quality on phase 7's best (not trained):")
     ab = ab_subpixel_quality.main(["--ckpt", ckpt, "--ckpt-name", "best"])
     if not ab["fast"]["count"] or ab["fast"]["count"] != \
@@ -3733,7 +3127,6 @@ def phase_batch_invariance(torch, ckpt: str) -> dict:
         raise AssertionError(f"ab_subpixel_quality: {ab}")
     torch.cuda.empty_cache()
     return {"kernels": kernels, "pipeline": pipeline,
-            "bench_kernels_iters5": lines,
             "ab_subpixel_quality_not_trained": ab}
 
 
@@ -3745,7 +3138,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from affganwriting_torch.ops import cuda_build
-    from affganwriting_torch.tools.timing import card_peaks, nvidia_smi_line
+    from affganwriting_torch.tools.timing import nvidia_smi_line
 
     t_start = time.perf_counter()
 
@@ -3753,17 +3146,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    part, peaks = card_peaks(name)
     log(f"[1] device: {name}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}; nvidia-smi: {smi}; peaks of the H100 {part} "
-        f"part: {peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.0f} TFLOP/s "
-        f"bf16, {peaks[2] / 1e12:.0f} TFLOP/s f32")
+        f"{torch.version.cuda}; nvidia-smi: {smi}")
     cached = cuda_build.library_path().is_file()
-    t0 = time.perf_counter()
     lib_path, build_log = cuda_build.build()
-    build_s = time.perf_counter() - t0
-    log(f"    {'cached build found at' if cached else 'built'} {lib_path} in "
-        f"{build_s:.1f} s")
+    log(f"    {'cached build found at' if cached else 'built'} {lib_path}")
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"    {line.strip()}")
@@ -3794,37 +3181,26 @@ def main() -> int:
     timed("3", phase_reference, torch)
     log("[4] main path at full width (default_config, bf16)")
     launches: dict[str, int] = {}
-    main_path = timed("4", phase_main_path, torch, launches, smi)
-    log("[5] kernel times at batch 256, bf16")
-    times = timed("5", phase_kernel_times, peaks)
-
-    times["phase_head"].update({
-        "route": "wgmma+tma",
-        "ptxas_wgmma": ptxas_info(build_log, "phase_head_wgmma_kernel"),
-        "ptxas_from": "cached build.log" if cached else "this build",
-        "f32_route_launches": launches["phase_head_f32"]})
+    timed("4", phase_main_path, torch, launches)
     sources = {"in_relu": ("affganwriting_torch/csrc/in_relu.cu",
                            "affganwriting_tpu/ops/in_relu_pallas.py:51"),
                "phase_head": ("affganwriting_torch/csrc/phase_head.cu",
                               "affganwriting_tpu/ops/phase_head_pallas.py:72")}
-    kernels = []
-    for k, (src, replaces) in sources.items():
-        t = times[k]
-        kernels.append({
-            "name": k, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[k], "max_abs_err": errs[k]["bf16"],
-            "max_abs_err_f32": errs[k]["f32"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "detail": {kk: v for kk, v in t.items()
-                       if kk not in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")},
-        })
+    kernels = [{"name": k, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches[k],
+                "max_abs_err": errs[k]["bf16"],
+                "max_abs_err_f32": errs[k]["f32"], "detail": {}}
+               for k, (src, replaces) in sources.items()]
+    kernels[1]["detail"].update({
+        "route": "wgmma+tma",
+        "ptxas_wgmma": ptxas_info(build_log, "phase_head_wgmma_kernel"),
+        "ptxas_from": "cached build.log" if cached else "this build",
+        "f32_route_launches": launches["phase_head_f32"]})
     log("[6] train: the merged step on the card vs on the CPU, small fp32 "
         "config")
     train_ref = timed("6a", phase_train_reference, torch)
     log("[6] train: full width (default_config, bf16, Adam, batch 8)")
-    train = timed("6b", phase_train, torch, smi)
+    train = timed("6b", phase_train, torch)
     # counts are (in_relu, phase_head wgmma route, phase_head f32 route)
     for k, routes in (("in_relu", (0,)), ("phase_head", (1, 2))):
         kernels[[r["name"] for r in kernels].index(k)]["detail"].update({
@@ -3836,14 +3212,13 @@ def main() -> int:
     root.mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="phase7_", dir=root)
     try:
-        runtime = timed("7", phase_trainer_runtime, torch, smi, tmp)
-        runtime["phase_s"] = seconds["7"]
+        runtime = timed("7", phase_trainer_runtime, torch, tmp)
         log("[8] evaluation and the other style encoders")
         log("[8a] card vs CPU, small fp32 config")
         eval_ref = timed("8a", phase_eval_reference, torch)
         log("[8b] each new style encoder at full width (default_config, "
             "bf16)")
-        encoders = timed("8b", phase_encoders, torch, smi, counts, zero)
+        encoders = timed("8b", phase_encoders, torch, counts, zero)
         log("[8c,d] quality_report on phase 7's best; evaluate")
         quality = timed("8cd", phase_quality_report, torch, tmp, counts,
                         zero)
@@ -3854,21 +3229,21 @@ def main() -> int:
         try:
             log("[9b] train_word --recognizer trocr --trocr-preset base "
                 "(default_config, batch 8)")
-            trocr = timed("9b", phase_trocr, torch, smi, tmp9, counts, zero)
+            trocr = timed("9b", phase_trocr, torch, tmp9, counts, zero)
         finally:
             shutil.rmtree(tmp9, ignore_errors=True)
         log("[9c] the teacher phase (default_config, 4 batches of 8)")
-        teacher = timed("9c", phase_teacher, torch, smi, counts, zero)
+        teacher = timed("9c", phase_teacher, torch, counts, zero)
         log("[9d] HTRTrainer (default_config, batch 32, 10 steps)")
-        htr = timed("9d", phase_htr, torch, smi)
+        htr = timed("9d", phase_htr, torch)
         log("[9e] entry(), cli/bench --batch 256 --quick, cli/bench_kernels")
         benches = timed("9e", phase_entry_and_benches, torch, counts, zero)
         seconds["9"] = sum(seconds[k] for k in ("9a", "9b", "9c", "9d",
                                                 "9e"))
         log("[10] w8a8 serving at full width (default_config, 1 x 256 "
             "words)")
-        log("[10a,b] int8 vs bf16 gates, int8 sums card vs CPU, timing")
-        int8 = timed("10ab", phase_int8, torch, smi, counts, zero)
+        log("[10a,b] int8 vs bf16 gates, int8 sums card vs CPU, launches")
+        int8 = timed("10ab", phase_int8, torch, counts, zero)
         log("[10c,d] tools/ab_int8_static, cli/bench --headline int8, "
             "tools/ab_int8_cer on phase 7's best")
         int8_tools = timed("10cd", phase_int8_tools, torch, tmp)
@@ -3877,19 +3252,19 @@ def main() -> int:
             "and 16")
         line_ref = timed("11a", phase_line_reference, torch)
         log("[11b] HWWithStyle at full width (cf_synth_charSpecMulti)")
-        line = timed("11b", phase_line_full, torch, smi, counts, zero)
+        line = timed("11b", phase_line_full, torch, counts, zero)
         log("[12] the line GAN: lessons, trainer, CLIs and serving")
         log("[12a] each lesson step of a small f32 LineGanTrainer, card vs "
             "CPU")
         line_train_ref = timed("12a", phase_line_train_reference, torch)
         log("[12b] LineGanTrainer at full width (cf_synth_charSpecMulti)")
-        line_train = timed("12b", phase_line_train, torch, smi, counts, zero)
+        line_train = timed("12b", phase_line_train, torch, counts, zero)
         tmp12 = tempfile.mkdtemp(prefix="phase12_", dir=root)
         try:
             log("[12c] train_line -> resume -> validate -> get_styles -> "
                 "generate_lines -> app --selftest")
-            line_clis = timed("12c", phase_line_clis, torch, smi, tmp12,
-                              counts, zero)
+            line_clis = timed("12c", phase_line_clis, torch, tmp12, counts,
+                              zero)
         finally:
             shutil.rmtree(tmp12, ignore_errors=True)
         log("[13] line pretraining, IAM-format lines, line evaluation, the "
@@ -3897,31 +3272,30 @@ def main() -> int:
         tmp13 = tempfile.mkdtemp(prefix="phase13_", dir=root)
         try:
             log("[13a] train_hwr: one step card vs CPU, then the CLI")
-            hwr = timed("13a", phase_hwr_pretrain, torch, smi, tmp13)
+            hwr = timed("13a", phase_hwr_pretrain, torch, tmp13)
             log("[13b] train_auto: one step card vs CPU, then the CLI")
-            auto = timed("13b", phase_auto_pretrain, torch, smi, tmp13)
+            auto = timed("13b", phase_auto_pretrain, torch, tmp13)
             log("[13c-e] train_line --pretrained-hwr --pretrained-ae "
                 "--xml-root -> restore -> evaluate_line -> line_repl")
-            line_pre = timed("13cde", phase_line_pretrained, torch, smi, tmp13,
+            line_pre = timed("13cde", phase_line_pretrained, torch, tmp13,
                              hwr.pop("path"), auto.pop("path"), counts, zero)
         finally:
             shutil.rmtree(tmp13, ignore_errors=True)
         log("[13f] profile_pipeline and profile_gen at batch 256")
-        profilers = timed("13f", phase_profilers, torch, smi, counts, zero,
-                          times)
+        profilers = timed("13f", phase_profilers, torch, tmp, counts, zero)
         seconds["13"] = sum(seconds[k] for k in ("13a", "13b", "13cde", "13f"))
         log("[14] multi-device: the mesh on torch.distributed")
         tmp14 = tempfile.mkdtemp(prefix="phase14_", dir=root)
         try:
             log("[14a] NCCL at world 1: the 1x1 sharded pipeline, "
                 "generate_word --mesh auto")
-            mesh1 = timed("14a", phase_mesh_world1, torch, smi, tmp14, counts,
+            mesh1 = timed("14a", phase_mesh_world1, torch, tmp14, counts,
                           zero)
         finally:
             shutil.rmtree(tmp14, ignore_errors=True)
         log("[14b-d] two ranks sharing the card over gloo: the sharded "
             "pipeline, the word step (data=2, 1x2), the line lessons")
-        mesh2 = timed("14bcd", phase_mesh_two_ranks, torch, smi)
+        mesh2 = timed("14bcd", phase_mesh_two_ranks, torch)
         seconds["14"] = seconds["14a"] + seconds["14bcd"]
         log("[15] batch invariance: the kernels and the bf16 request at "
             "batch 64 vs 256 (default_config)")
@@ -3952,7 +3326,7 @@ def main() -> int:
             "launches_trainer_eval_batch":
                 runtime["eval_launches_per_batch"][key],
             "launches_generate_word_call":
-                runtime["generate_word"]["beam0"]["launches"][key],
+                runtime["generate_word_launches"][key],
             "launches_quality_report_call": quality["launches"][key],
             "launches_encoder_generate_call": {
                 n: e["launches_generate_call"][key]
@@ -3960,7 +3334,7 @@ def main() -> int:
             "launches_trocr_eval_step": trocr["launches_eval_step"][key],
             "launches_entry_call": benches["entry_launches"][key]})
     log(f"phase seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
-    log(json.dumps({"main_path": main_path, "train_reference": train_ref,
+    log(json.dumps({"train_reference": train_ref,
                     "train": train, "trainer_runtime": runtime,
                     "eval_reference": eval_ref, "encoders": encoders,
                     "quality_report": quality, "trocr_reference": trocr_ref,
@@ -3972,8 +3346,7 @@ def main() -> int:
                     "hwr_pretrain": hwr, "auto_pretrain": auto,
                     "line_pretrained": line_pre, "profilers": profilers,
                     "mesh_world1": mesh1, "mesh_two_ranks": mesh2,
-                    "batch_invariance": invariance, "phase_s": seconds,
-                    "build_s": build_s}))
+                    "batch_invariance": invariance, "phase_s": seconds}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

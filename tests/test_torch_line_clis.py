@@ -182,7 +182,8 @@ def test_op_counts_add_the_kernels_reported_work():
     (``cuda_build.count_work``) to every open ``work_counter``, and
     ``op_counts`` adds it to ``FlopCounterMode``'s and ``ByteCounter``'s
     counts.  The kernels themselves report on the card (``chip_smoke.py``
-    phase 13f holds their reports against phase 5's bound inputs)."""
+    phase 13f holds their reports against ``cli/bench_kernels``' bound
+    inputs)."""
     from affganwriting_torch.ops import cuda_build
     from affganwriting_torch.utils.profiling import op_counts
 

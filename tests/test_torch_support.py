@@ -17,8 +17,10 @@ import numpy as np
 import torch
 
 from affganwriting_tpu.core.config import default_config
+from affganwriting_torch.train.parity import (  # noqa: F401 (the tests' f64)
+    in_f64 as port_in_f64,
+)
 from affganwriting_torch.utils.from_flax import convert_module
-from chip_smoke import in_f64 as port_in_f64  # noqa: F401 (the tests' f64)
 
 # the small fp32 resnet50 configuration of __graft_entry__.py's dryrun
 SMALL = dict(compute_dtype="float32", img_height=32, img_width=104,
